@@ -1,0 +1,432 @@
+"""Chip smoke for the PyTorch/CUDA port: model-path revision on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device  - a CUDA card is required (exit 2 without one); prints
+             nvidia-smi's name and power limit.
+2. build   - compiles csrc/*.cu with nvcc (one process per source, in
+             parallel) and reports what ptxas says.
+3. gather  - packs one full-tier batch (196,608 windows) from synthetic
+             reads, decodes it on the card, and holds the window-gather
+             kernel bit-exact against its plain version on the card and on
+             the CPU; times kernel and plain version with CUDA events.
+4. stack   - on the same batch, holds base_rows and stack_heads against the
+             bf16 plain version (argmax agreement >= 0.995, max |dlogit| <=
+             0.05) and against the f32 plain version with TF32 off
+             (agreement >= 0.99 over windows whose f32 top-2 margin exceeds
+             1e-3, atol 0.15); times kernels and plain versions.
+5. e2e     - writes 40 synthetic fast5 reads of ~10k bases, random weights
+             (the port's init + save_keras_weights), and runs the CLI in model
+             mode for fastq and fasta: one output file per read, no failed
+             read, every kernel launched. Launch counts are zeroed just
+             before and read just after. A few reads are also revised with
+             emit="labels" on the card and on the CPU (plain f32 path) and
+             must agree.
+
+Then the kernel table line, nvidia-smi's line, and as the last line
+{"ok": true, "device": {...}}. Any failed check raises and the script exits
+non-zero without that line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+SEED = 20261016
+N_READS = 40
+READ_BASES = (9000, 11000)
+WINDOW = 11
+H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (SXM, 700 W)
+H100_BYTES_PER_S = 3.35e12      # HBM3
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_weights(out_dir: str) -> tuple[str, str]:
+    import torch
+
+    from nanoreviser_torch.models import (
+        ReviserConfig, init_reviser_params, save_keras_weights)
+    from nanoreviser_torch.models.reviser import randomize_inference_stats
+
+    paths = []
+    for k, n_cls in enumerate((6, 5)):
+        gen = torch.Generator().manual_seed(SEED + k)
+        p = init_reviser_params(gen, ReviserConfig(window=WINDOW, n_classes=n_cls))
+        p = randomize_inference_stats(p, gen)
+        path = os.path.join(out_dir, f"model{k + 1}.h5")
+        save_keras_weights(p, path, WINDOW, n_cls)
+        paths.append(path)
+    return paths[0], paths[1]
+
+
+def phase_device() -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        sys.exit(2)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    info = {"phase": "device", "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "nvidia_smi": smi,
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "capability": list(torch.cuda.get_device_capability(0))}
+    emit(info)
+    return info
+
+
+def phase_build() -> None:
+    from nanoreviser_torch.ops import build
+
+    t0 = time.time()
+    logs = build.build_all()
+    ptxas = {src: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
+             for src, log in logs.items()}
+    emit({"phase": "build", "seconds": round(time.time() - t0, 3),
+          "nvcc": build.nvcc_path(), "ptxas": ptxas})
+
+
+def phase_gather(tmp: str, weights):
+    import torch
+
+    from nanoreviser_torch.infer import StreamingReviser
+    from nanoreviser_torch.infer.wire import decode_wire, encode_read, wire_to_tensors
+    from nanoreviser_torch.io import get_read_data
+    from nanoreviser_torch.io.synthetic import write_synthetic_dir
+    from nanoreviser_torch.ops.window_gather import (
+        WINDOW_GATHER, window_gather, window_gather_plain)
+    from nanoreviser_torch.signal import compact_read_numpy
+
+    fast5_dir = os.path.join(tmp, "fast5")
+    t0 = time.time()
+    names = write_synthetic_dir(fast5_dir, N_READS, READ_BASES, seed=SEED)
+    write_s = time.time() - t0
+    eng = StreamingReviser(*weights, device="cuda")
+    wires = [(n, encode_read(compact_read_numpy(get_read_data(
+        os.path.join(fast5_dir, n))))) for n in names]
+    packed, tier, n_packed = eng.pack_batch(wires)
+    check(tier is eng.top, "the gather batch is not a full-tier batch")
+    w_valid = int(packed["wvalid"][0])
+    rows_valid = int(packed["nv"][0]) * 128
+
+    dec = decode_wire(wire_to_tensors(packed, eng.device), s_cap=tier.s_cap,
+                      n_rows=tier.n_rows, n_rows_g=tier.n_rows_g)
+    dec_cpu = decode_wire(wire_to_tensors(packed, "cpu"), s_cap=tier.s_cap,
+                          n_rows=tier.n_rows, n_rows_g=tier.n_rows_g)
+    for field in ("sig", "pos0", "vlen", "read_id", "shift", "scale", "feats"):
+        check(torch.equal(getattr(dec, field).cpu(), getattr(dec_cpu, field)),
+              f"decode_wire differs between card and CPU in {field}")
+    args = (dec.sig, dec.pos0, dec.vlen, dec.read_id, dec.shift, dec.scale,
+            rows_valid)
+    out = window_gather(*args)
+    plain = window_gather_plain(*args)
+    plain_cpu = window_gather_plain(dec_cpu.sig, dec_cpu.pos0, dec_cpu.vlen,
+                                    dec_cpu.read_id, dec_cpu.shift,
+                                    dec_cpu.scale, rows_valid)
+    torch.cuda.synchronize()
+    check(torch.equal(out, plain), "gather kernel != plain version on the card")
+    check(torch.equal(out.cpu(), plain_cpu), "gather kernel != plain on the CPU")
+    check(bool(out[:rows_valid].float().abs().sum() > 0), "gather output is all zero")
+    max_err = float((out.float() - plain.float()).abs().max())
+
+    ms = cuda_ms(lambda: window_gather(*args), reps=100)
+    plain_ms = cuda_ms(lambda: window_gather_plain(*args), reps=20)
+    n_rows_g = tier.n_rows_g
+    sig_bytes = 2 * int(dec.sig.shape[0])
+    bytes_moved = (sig_bytes + 3 * 4 * n_rows_g + 2 * 4 * 256
+                   + n_rows_g * out.shape[1] * 2)
+    ops = 2 * rows_valid * 50
+    bound_ms = max(bytes_moved / H100_BYTES_PER_S, ops / H100_BF16_FLOPS) * 1e3
+    emit({"phase": "gather", "reads_written": N_READS,
+          "write_seconds": round(write_s, 3), "reads_in_batch": n_packed,
+          "windows": w_valid, "rows": n_rows_g, "rows_valid": rows_valid,
+          "bit_exact_card": True, "bit_exact_cpu": True, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms})
+    row = {"name": "window_gather", "route": "cuda",
+           "source": "nanoreviser_torch/csrc/window_gather.cu",
+           "replaces": WINDOW_GATHER.replaces, "max_abs_err": max_err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_moved / H100_BYTES_PER_S
+           >= ops / H100_BF16_FLOPS else "operations", "library_ms": None}
+    return eng, dec, out, tier, w_valid, fast5_dir, names, row
+
+
+def _agreement(a, b, margin_ref=None, min_margin=0.0):
+    import torch
+
+    same = a.argmax(-1) == b.argmax(-1)
+    if margin_ref is None:
+        return float(same.float().mean()), 0
+    top2 = torch.topk(margin_ref, 2, dim=-1).values
+    ok = (top2[..., 0] - top2[..., 1]) > min_margin
+    return float(same[ok].float().mean()), int((~ok).sum())
+
+
+def _f32_weights(weights, t_len: int, device) -> dict:
+    """The unrounded f32 stack weights (the engine on the card holds bf16)."""
+    import torch
+
+    from nanoreviser_torch.models import load_keras_weights
+    from nanoreviser_torch.models.fused import fold_inference_params
+    from nanoreviser_torch.ops import reviser_kernel as rk
+
+    per_model = [rk.pack_stack_weights(
+        fold_inference_params(load_keras_weights(p)[0]), t_len) for p in weights]
+    return rk.weights_to_device(rk.stack_models(per_model), device, torch.float32)
+
+
+def phase_stack(eng, dec, sig, tier, w_valid, weights):
+    import torch
+
+    from nanoreviser_torch.ops import reviser_kernel as rk
+    from nanoreviser_torch.ops.window_gather import Q, window_gather_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = eng.window
+    ws = eng._ws
+    n_p = w_valid + t - 1
+    n_win = tier.w_max
+    feats = dec.feats
+    v = slice(0, w_valid)
+
+    def dmax(a, b):
+        """max |a - b| over the valid windows and each model's classes"""
+        return max(float((a[m, v, :nc] - b[m, v, :nc]).abs().max())
+                   for m, nc in enumerate(eng.n_classes))
+
+    p1, p3 = rk.base_rows(ws, sig, feats, n_p, t_len=t)
+    q1, q3 = rk.base_rows_plain(ws, sig, feats, n_p, bf16=True)
+    logits, probs = rk.stack_heads(ws, p1, p3, t_len=t, w_valid=w_valid,
+                                   n_windows=n_win, want_probs=True)
+    # the same p1/p3 through the plain stack isolates stack_heads
+    lp, pp = rk.stack_heads_plain(ws, p1, p3, t_len=t, w_valid=w_valid,
+                                  n_windows=n_win, want_probs=True)
+    # the whole plain bf16 chain, for the B2 bars
+    lpc, _ = rk.stack_heads_plain(ws, q1, q3, t_len=t, w_valid=w_valid,
+                                  n_windows=n_win, want_probs=True)
+    torch.cuda.synchronize()
+    base_err = max(float((p1 - q1).abs().max()), float((p3 - q3).abs().max()))
+    check(base_err <= 0.05, f"base_rows vs plain: max |d| {base_err}")
+    for name, x in (("logits", logits), ("probs", probs), ("p1", p1), ("p3", p3)):
+        check(bool(torch.isfinite(x).all()), f"{name} has non-finite values")
+    heads_err = dmax(logits, lp)
+    heads_perr = float((probs[:, v] - pp[:, v]).abs().max())
+    b2_err = dmax(logits, lpc)
+    agree_bf16 = [_agreement(logits[m, v], lpc[m, v])[0] for m in range(2)]
+    check(heads_err <= 0.05 and b2_err <= 0.05,
+          f"stack vs bf16 plain: max |dlogit| {heads_err} / {b2_err}")
+    check(min(agree_bf16) >= 0.995, f"stack vs bf16 plain agreement {agree_bf16}")
+
+    win_f32 = window_gather_plain(dec.sig, dec.pos0, dec.vlen, dec.read_id,
+                                  dec.shift, dec.scale, w_valid + t,
+                                  out_dtype=torch.float32, width=Q)
+    ws32 = _f32_weights(weights, t, sig.device)
+    lf, pf = rk.stack_logits_plain(ws32, win_f32, feats, t_len=t,
+                                   w_valid=w_valid, n_windows=n_win,
+                                   want_probs=True, bf16=False)
+    del ws32
+    f32_err = dmax(logits, lf)
+    agree_f32, near_ties = [], []
+    for m in range(2):
+        nc = eng.n_classes[m]
+        a, ties = _agreement(logits[m, v, :nc], lf[m, v, :nc], lf[m, v, :nc], 1e-3)
+        agree_f32.append(a)
+        near_ties.append(ties)
+    check(min(agree_f32) >= 0.99, f"stack vs f32 plain agreement {agree_f32}")
+    check(f32_err <= 0.15, f"stack vs f32 plain max |dlogit| {f32_err}")
+    classes = [torch.bincount(logits[m, v].argmax(-1), minlength=6).tolist()
+               for m in range(2)]
+    check(sum(c > 0 for c in classes[0]) >= 2, f"model1 labels degenerate {classes[0]}")
+
+    base_ms = cuda_ms(lambda: rk.base_rows(ws, sig, feats, n_p, t_len=t), reps=10)
+    base_plain_ms = cuda_ms(
+        lambda: rk.base_rows_plain(ws, sig, feats, n_p, bf16=True), reps=3)
+    heads_ms = cuda_ms(lambda: rk.stack_heads(
+        ws, p1, p3, t_len=t, w_valid=w_valid, n_windows=n_win,
+        want_probs=True), reps=3)
+    heads_plain_ms = cuda_ms(lambda: rk.stack_heads_plain(
+        ws, p1, p3, t_len=t, w_valid=w_valid, n_windows=n_win,
+        want_probs=True), reps=2)
+
+    per_row = sum(a * b for a, b in (
+        (50, 400), (400, 400), (400, 64), (50, 64), (6, 128), (64, 1024)))
+    base_ops = 2 * 2 * n_p * per_row
+    w_bytes = sum(x.numel() * x.element_size() for x in ws.values())
+    base_bytes = (n_p * (sig.shape[1] * 2 + 6 * 4) + w_bytes
+                  + (p1.numel() + p3.numel()) * 4)
+    per_t = (2 * (16 * 64 + 64 * 256 + 128 * 512 + 64 * 256)
+             + 2 * (32 * 256 + 128 * 512 + 256 * 256)
+             + 128 * 128 + 128 * 32 + 32 * 6 + 6 * 16)
+    macs_window = per_t * t + 16 * 6
+    heads_ops = 2 * 2 * w_valid * macs_window
+    heads_bytes = ((p1.numel() + p3.numel()) * 4 + w_bytes
+                   + (logits.numel() + probs.numel()) * 4)
+
+    def bound(ops, nbytes):
+        tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
+        return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+    bb, bb_by = bound(base_ops, base_bytes)
+    hb, hb_by = bound(heads_ops, heads_bytes)
+    emit({"phase": "stack", "windows": w_valid, "rows": n_p,
+          "base_rows_max_abs_err": base_err,
+          "stack_heads_max_abs_dlogit": heads_err,
+          "stack_heads_max_abs_dprob": heads_perr,
+          "b2_vs_bf16_plain": {"max_abs_dlogit": b2_err, "argmax_agreement": agree_bf16},
+          "b2_vs_f32_plain": {"max_abs_dlogit": f32_err, "argmax_agreement": agree_f32,
+                              "near_ties_margin_1e-3": near_ties},
+          "label_counts": classes,
+          "launches_per_batch": {"window_gather": 1, "base_rows": 1, "stack_heads": 1},
+          "base_rows_ms": base_ms, "base_rows_plain_ms": base_plain_ms,
+          "stack_heads_ms": heads_ms, "stack_heads_plain_ms": heads_plain_ms,
+          "base_rows_bound_ms": bb, "stack_heads_bound_ms": hb,
+          "macs_per_window_per_model": macs_window})
+    rows = [
+        {"name": "base_rows", "route": "cuda",
+         "source": "nanoreviser_torch/csrc/reviser_stack.cu",
+         "replaces": rk.BASE_ROWS.replaces, "max_abs_err": base_err,
+         "ms": base_ms, "plain_ms": base_plain_ms, "bound_ms": bb,
+         "bound_by": bb_by, "library_ms": None},
+        {"name": "stack_heads", "route": "cuda",
+         "source": "nanoreviser_torch/csrc/reviser_stack.cu",
+         "replaces": rk.STACK_HEADS.replaces, "max_abs_err": heads_err,
+         "ms": heads_ms, "plain_ms": heads_plain_ms, "bound_ms": hb,
+         "bound_by": hb_by, "library_ms": None},
+    ]
+    return rows
+
+
+def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.cli.reviser import main as cli_main
+    from nanoreviser_torch.infer import StreamingReviser
+    from nanoreviser_torch.io import get_read_data
+    from nanoreviser_torch.ops.reviser_kernel import BASE_ROWS, STACK_HEADS
+    from nanoreviser_torch.ops.window_gather import WINDOW_GATHER
+
+    kernels = (WINDOW_GATHER, BASE_ROWS, STACK_HEADS)
+    n_bases = sum(get_read_data(os.path.join(fast5_dir, n)).n_bases for n in names)
+    for k in kernels:
+        k.launches = 0
+    runs = {}
+    for fmt in ("fastq", "fasta"):
+        out_dir = os.path.join(tmp, f"out_{fmt}")
+        failed_fn = os.path.join(tmp, f"failed_{fmt}.txt")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rc = cli_main(["-d", fast5_dir, "-o", out_dir, "-F", fmt,
+                       "--revise_mode", "model", "--device", "cuda",
+                       "--model1_predict_dir", weights[0],
+                       "--model2_predict_dir", weights[1],
+                       "-e", failed_fn, "--thread", "8"])
+        secs = time.time() - t0
+        check(rc == 0, f"CLI {fmt} returned {rc}")
+        check(not os.path.exists(failed_fn), f"CLI {fmt} recorded failed reads")
+        outs = sorted(os.listdir(out_dir))
+        check(len(outs) == len(names), f"{fmt}: {len(outs)} files for {len(names)} reads")
+        for n in names[:5]:
+            text = open(os.path.join(out_dir, n.split(".")[0] + f"_out.{fmt}")).read()
+            lines = text.split("\n")
+            check(lines[0] == (">" if fmt == "fasta" else "@") + n, "bad header")
+            seq = lines[1].split("+")[0]
+            check(set(seq) <= set("ACGTN") and abs(len(seq) - len(
+                get_read_data(os.path.join(fast5_dir, n)).bases)) < 0.2 * len(seq),
+                "revised sequence implausible")
+            if fmt == "fastq":
+                check(len(lines[2]) == len(seq), "quality length != sequence length")
+        runs[fmt] = {"seconds": secs, "reads_per_s": len(names) / secs,
+                     "bases_per_s": n_bases / secs}
+    launches = {k.name: k.launches for k in kernels}
+    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+
+    # model1 labels on the card (bf16 kernels) vs the CPU engine's plain f32
+    # path on three reads, one batch each, all three in flight at once;
+    # bf16 rounding flips ~0.5% of windows (measured on the CPU against the
+    # bf16 plain version), so the bar is 0.98 for every read
+    few = [(n, get_read_data(os.path.join(fast5_dir, n))) for n in names[:3]]
+    gpu = StreamingReviser(*weights, device="cuda", batch_windows=12288)
+    cpu = StreamingReviser(*weights, device="cpu", batch_windows=12288)
+    got = {n: y for n, _, y, _ in gpu.revise_stream(few, emit="labels")}
+    want = {n: y for n, _, y, _ in cpu.revise_stream(few, emit="labels")}
+    check(gpu.stats["batches"] == len(few), f"label check batches {gpu.stats}")
+    per_read = [float(np.mean(got[n] == want[n])) for n, _ in few]
+    agree = min(per_read)
+    check(agree >= 0.98, f"card vs CPU f32 label agreement per read {per_read}")
+    emit({"phase": "e2e", "reads": len(names), "bases": n_bases,
+          "runs": runs, "launches": launches, "failed": 0,
+          "labels_card_vs_cpu_f32_agreement": agree})
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    import nanoreviser_torch  # noqa: F401 — fail before any output without it
+
+    info = phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = make_weights(tmp)
+        eng, dec, sig, tier, w_valid, fast5_dir, names, grow = phase_gather(tmp, weights)
+        srows = phase_stack(eng, dec, sig, tier, w_valid, weights)
+        del eng, dec, sig
+        torch.cuda.empty_cache()
+        launches = phase_e2e(tmp, weights, fast5_dir, names)
+    rows = [grow] + srows
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: r[k] for k in order} for r in rows]})
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
+                                 "count": info["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

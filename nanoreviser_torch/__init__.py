@@ -1,0 +1,20 @@
+"""NanoReviser on PyTorch and CUDA: model-path revision on an NVIDIA H100.
+
+A second implementation of the model path of ``nanoreviser_tpu``, written for
+PyTorch with hand-written CUDA kernels for Hopper (``csrc/``). Module names
+mirror the JAX package so each counterpart is easy to find:
+
+- ``io``      fast5 ingestion, fasta/fastq writers, a synthetic fast5 writer
+- ``signal``  MAD normalizers, per-base features, per-read signal compaction
+- ``models``  Keras ``.h5`` import/export, eager reviser, BN folding
+- ``ops``     the window-gather and reviser-stack kernels, their plain
+              PyTorch versions, and the nvcc build
+- ``infer``   wire encode/decode, revision merge, the streaming engine
+- ``cli``     the reviser command line
+
+The package imports torch and numpy only (HDF5 files are read and written
+by its own ``io.hdf5``). Entry points run on the card (``device="cuda"``)
+unless the caller asks for the CPU.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,422 @@
+"""The fused dual-model reviser stack: weight packing, plain versions, and
+the entry to the two CUDA kernels of ``csrc/reviser_stack.cu``.
+
+Replaces the TPU kernel ``_kernel_full`` (``nanoreviser_tpu/ops/
+reviser_kernel.py:283``, entry ``stack_logits_full`` ``:678``). Per base row
+w of a batch, window w covers rows w..w+T-1. The work splits in two:
+
+* ``base_rows`` (once per base row and model): the conv branch in dense
+  form, ``relu(x@W1+c1) -> relu(.@W2+c2) -> .@C + x@E + cb`` (50 -> 400 ->
+  400 -> 64), the layer-1 input projections of both directions (6 -> 2x64,
+  bias included) and the layer-3 signal projections (64 -> 2x512). Outputs
+  ``p1`` [2, N, 128] and ``p3`` [2, N, 1024] in f32.
+* ``stack_heads`` (per window and model): 4 Bi-LSTM layers (H 16/64/128/64,
+  Keras hard_sigmoid gates), the per-t relu heads 128 -> 128 -> 32 -> 6,
+  ``feature = relu(sum_t main_t @ fw[t] + fb)``, the logits
+  ``feature @ fow + fob`` and optionally the max softmax probability
+  ``1 / sum(exp(l - max))``.
+
+Rounding follows the TPU kernel: matmul operands are bf16 with f32
+accumulation; z1, z2 and s64 are rounded to bf16 (``:339-348``); p1/p3
+stay f32; h is rounded to bf16 after every step while c stays f32
+(``:136-143``); head activations and the feature are rounded to bf16 before
+the next product. Model 2 has 5 classes; its 6th logit carries bias -1e9 so
+it never wins.
+
+Weights are packed unpadded, in the layout the CUDA kernels read: each
+matrix row-major [in, out], LSTM gate columns i,f,c,o of one direction
+contiguous, the two directions side by side where one kernel pass
+produces both (``wi1``, ``b1``, ``wi3s``) and on a leading direction axis
+where the passes run one after the other; both models stacked on a leading
+model axis.
+
+Two plain versions sit beside the kernels: the f32 one (the CPU engine's
+path, held against the JAX f32 model) and the bf16-operand one (held
+against the TPU kernel in interpret mode and, on the card, against the CUDA
+kernels).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.fused import bn_affine
+from . import build
+
+H1, H2, H3, H4 = 16, 64, 128, 64    # hidden sizes of the 4 Bi-LSTM layers
+NB_MAX = 6                          # model1 class count; model2 padded to it
+Q = 50                              # signal samples per base row
+QP = 64                             # padded row width of the gathered signal
+PAD_LOGIT_BIAS = -1e9
+
+# matrices go to the kernels in bf16, biases in f32
+MATRICES = ("cw1", "cw2", "cc", "ce", "wi1", "wi3s", "wh1", "wi2", "wh2",
+            "wi3", "wh3", "wi4", "wh4", "d1w", "d2w", "mow", "fw", "fow")
+# the argument order of the C entries (csrc/reviser_stack.cu)
+BASE_ORDER = ("cw1", "cb1", "cw2", "cb2", "cc", "ce", "cbias", "wi1", "b1",
+              "wi3s")
+STACK_ORDER = ("wh1", "wi2", "b2", "wh2", "wi3", "b3", "wh3", "wi4", "b4",
+               "wh4", "d1w", "d1b", "d2w", "d2b", "mow", "mob", "fw", "fb",
+               "fow", "fob")
+
+
+def stack_shapes(t_len: int) -> dict:
+    """Per-model shape of every packed weight."""
+    return {
+        "cw1": (Q, 400), "cb1": (400,), "cw2": (400, 400), "cb2": (400,),
+        "cc": (400, 64), "ce": (Q, 64), "cbias": (64,),
+        "wi1": (6, 2 * 4 * H1), "b1": (2 * 4 * H1,),
+        "wi3s": (64, 2 * 4 * H3),
+        "wh1": (2, H1, 4 * H1),
+        "wi2": (2, 2 * H1, 4 * H2), "b2": (2, 4 * H2), "wh2": (2, H2, 4 * H2),
+        "wi3": (2, 2 * H2, 4 * H3), "b3": (2, 4 * H3), "wh3": (2, H3, 4 * H3),
+        "wi4": (2, 2 * H3, 4 * H4), "b4": (2, 4 * H4), "wh4": (2, H4, 4 * H4),
+        "d1w": (2 * H4, 128), "d1b": (128,), "d2w": (128, 32), "d2b": (32,),
+        "mow": (32, NB_MAX), "mob": (NB_MAX,),
+        "fw": (t_len, NB_MAX, 16), "fb": (16,),
+        "fow": (16, NB_MAX), "fob": (NB_MAX,),
+    }
+
+
+# --------------------------------------------------------------- weight prep
+
+
+def conv_dense_form(params: dict) -> dict:
+    """Fold the conv residual block + per-step dense into 3 dense matmuls
+    (copy of ``nanoreviser_tpu/ops/reviser_kernel.py:384``, numpy f64).
+
+    Conv1D('same', k=3) is a banded linear map, so with the BN affines
+    (s, t) folded the branch x[50] -> out64 is exactly
+      out64 = relu(relu(x@W1 + c1) @ W2 + c2) @ C + x@E + cb
+    with W1 [50, 400], W2 [400, 400], C [400, 64], E [50, 64].
+    """
+    w1 = np.asarray(params["conv1"]["w"], np.float64)   # [3, 1, F]
+    b1 = np.asarray(params["conv1"]["b"], np.float64)
+    w2 = np.asarray(params["conv2"]["w"], np.float64)   # [3, F, F]
+    b2 = np.asarray(params["conv2"]["b"], np.float64)
+    d = np.asarray(params["sig_dense"]["w"], np.float64)   # [S*F, 64]
+    bd = np.asarray(params["sig_dense"]["b"], np.float64)
+    s1, t1 = bn_affine(params["bn_c1"])
+    s2, t2 = bn_affine(params["bn_c2"])
+    kk, _, f = w1.shape
+    s = d.shape[0] // f
+    half = kk // 2
+
+    # W1[j, p*F + c] = w1[j - p + half, 0, c] for |j - p| <= half
+    w1_dense = np.zeros((s, s * f), np.float64)
+    w2_dense = np.zeros((s * f, s * f), np.float64)
+    for p in range(s):
+        for dk in range(-half, half + 1):
+            j = p + dk
+            if 0 <= j < s:
+                w1_dense[j, p * f : (p + 1) * f] = w1[dk + half, 0]
+                w2_dense[j * f : (j + 1) * f, p * f : (p + 1) * f] = w2[dk + half]
+    c1 = np.tile(b1, s)
+    s1r, t1r = np.tile(s1, s), np.tile(t1, s)
+    s2r, t2r = np.tile(s2, s), np.tile(t2, s)
+
+    w2f = s1r[:, None] * w2_dense
+    c2 = t1r @ w2_dense + np.tile(b2, s)
+    c_mat = s2r[:, None] * d
+    e_mat = d.reshape(s, f, -1).sum(axis=1)            # residual x broadcast
+    cb = t2r @ d + bd
+    return {
+        "W1": w1_dense.astype(np.float32), "c1": c1.astype(np.float32),
+        "W2": w2f.astype(np.float32), "c2": c2.astype(np.float32),
+        "C": c_mat.astype(np.float32), "E": e_mat.astype(np.float32),
+        "cb": cb.astype(np.float32),
+    }
+
+
+def pack_stack_weights(fused: dict, t_len: int) -> dict:
+    """Kernel-layout f32 weights of one model from BN-folded params
+    (``models.fused.fold_inference_params``)."""
+    f32 = lambda x: np.asarray(x, np.float32)
+    cd = conv_dense_form(fused)
+    w = {"cw1": cd["W1"], "cb1": cd["c1"], "cw2": cd["W2"], "cb2": cd["c2"],
+         "cc": cd["C"], "ce": cd["E"], "cbias": cd["cb"]}
+
+    r1, r2 = fused["read_rnn1"], fused["read_rnn2"]
+    t1, t2 = fused["total_rnn1"], fused["total_rnn2"]
+    dirs = ("fwd", "bwd")
+    w["wi1"] = np.concatenate([f32(r1[d]["wi"]) for d in dirs], axis=1)
+    w["b1"] = np.concatenate([f32(r1[d]["b"]) for d in dirs])
+    w["wh1"] = np.stack([f32(r1[d]["wh"]) for d in dirs])
+    w["wi2"] = np.stack([f32(r2[d]["wi"]) for d in dirs])
+    w["b2"] = np.stack([f32(r2[d]["b"]) for d in dirs])
+    w["wh2"] = np.stack([f32(r2[d]["wh"]) for d in dirs])
+    # total_rnn1 input = [read (2*H2) | signal (64)]: the signal rows are
+    # applied once per base row (base_rows), the read rows per window
+    w["wi3"] = np.stack([f32(t1[d]["wi"])[: 2 * H2] for d in dirs])
+    w["wi3s"] = np.concatenate([f32(t1[d]["wi"])[2 * H2 :] for d in dirs], axis=1)
+    w["b3"] = np.stack([f32(t1[d]["b"]) for d in dirs])
+    w["wh3"] = np.stack([f32(t1[d]["wh"]) for d in dirs])
+    w["wi4"] = np.stack([f32(t2[d]["wi"]) for d in dirs])
+    w["b4"] = np.stack([f32(t2[d]["b"]) for d in dirs])
+    w["wh4"] = np.stack([f32(t2[d]["wh"]) for d in dirs])
+
+    w["d1w"], w["d1b"] = f32(fused["dense1"]["w"]), f32(fused["dense1"]["b"])
+    w["d2w"], w["d2b"] = f32(fused["dense2"]["w"]), f32(fused["dense2"]["b"])
+    w["mow"], w["mob"] = f32(fused["main_out"]["w"]), f32(fused["main_out"]["b"])
+    w["fw"] = f32(fused["feature"]["w"]).reshape(t_len, NB_MAX, 16)
+    w["fb"] = f32(fused["feature"]["b"])
+    fow = f32(fused["final_out"]["w"])                    # [16, C]
+    n_cls = fow.shape[1]
+    w["fow"] = np.zeros((16, NB_MAX), np.float32)
+    w["fow"][:, :n_cls] = fow
+    w["fob"] = np.full(NB_MAX, PAD_LOGIT_BIAS, np.float32)
+    w["fob"][:n_cls] = f32(fused["final_out"]["b"])
+
+    for k, shape in stack_shapes(t_len).items():
+        if w[k].shape != shape:
+            raise ValueError(f"packed {k} has shape {w[k].shape}, want {shape}")
+    return w
+
+
+def stack_models(per_model: list[dict]) -> dict:
+    """Stack per-model packed weights on a leading model axis."""
+    return {k: np.stack([m[k] for m in per_model]) for k in per_model[0]}
+
+
+def weights_to_device(ws: dict, device, matrix_dtype=torch.bfloat16) -> dict:
+    """Stacked numpy weights -> contiguous tensors on ``device``: matrices in
+    ``matrix_dtype`` (bf16 for the kernels), biases in f32."""
+    return {
+        k: torch.tensor(v, dtype=matrix_dtype if k in MATRICES else torch.float32,
+                        device=device).contiguous()
+        for k, v in ws.items()
+    }
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _rnd(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """Round to bf16 (kept in f32) where the kernel stores bf16."""
+    return x.to(torch.bfloat16).to(torch.float32) if bf16 else x
+
+
+def _plain_weights(ws: dict, bf16: bool) -> dict:
+    """f32 views of the weights; matrices rounded to bf16 for the bf16
+    version (biases stay f32, as in the kernels)."""
+    return {k: _rnd(v.to(torch.float32), bf16 and k in MATRICES)
+            for k, v in ws.items()}
+
+
+def _hs(x):
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+def base_rows_plain(ws: dict, sig: torch.Tensor, feats: torch.Tensor,
+                    n_rows: int, *, bf16: bool = True):
+    """Plain version of ``base_rows``: rows [0, n_rows) of sig [N, >=50] and
+    feats [N, 6] -> (p1 [2, n_rows, 128], p3 [2, n_rows, 1024]) in f32."""
+    w = _plain_weights(ws, bf16)
+    x = _rnd(sig[:n_rows, :Q].to(torch.float32), bf16)
+    f = _rnd(feats[:n_rows].to(torch.float32), bf16)
+    p1, p3 = [], []
+    for m in range(w["cw1"].shape[0]):
+        z1 = _rnd(torch.relu(x @ w["cw1"][m] + w["cb1"][m]), bf16)
+        z2 = _rnd(torch.relu(z1 @ w["cw2"][m] + w["cb2"][m]), bf16)
+        s64 = _rnd(z2 @ w["cc"][m] + x @ w["ce"][m] + w["cbias"][m], bf16)
+        p1.append(f @ w["wi1"][m] + w["b1"][m])
+        p3.append(s64 @ w["wi3s"][m])
+    return torch.stack(p1), torch.stack(p3)
+
+
+def _lstm_pass(step_in, wh, hidden, t_len, reverse, bf16):
+    """One direction: z_t = step_in(t) + h @ wh; returns per-t h."""
+    n = step_in(0).shape[0]
+    h = step_in(0).new_zeros(n, hidden)
+    c = step_in(0).new_zeros(n, hidden)
+    outs = [None] * t_len
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        z = step_in(t) + h @ wh
+        i = _hs(z[:, :hidden])
+        fg = _hs(z[:, hidden : 2 * hidden])
+        g = torch.tanh(z[:, 2 * hidden : 3 * hidden])
+        o = _hs(z[:, 3 * hidden :])
+        c = fg * c + i * g
+        h = _rnd(o * torch.tanh(c), bf16)
+        outs[t] = h
+    return outs
+
+
+def stack_heads_plain(ws: dict, p1: torch.Tensor, p3: torch.Tensor, *,
+                      t_len: int, w_valid: int, n_windows: int,
+                      want_probs: bool, bf16: bool = True):
+    """Plain version of ``stack_heads``. p1 [2, R, 128], p3 [2, R, 1024]
+    with R >= w_valid + t_len - 1. Returns logits [2, n_windows, 6] and
+    probs [2, n_windows] (or None); windows >= w_valid are zero."""
+    w = _plain_weights(ws, bf16)
+    n_models = w["wh1"].shape[0]
+    logits = p1.new_zeros(n_models, n_windows, NB_MAX)
+    probs = p1.new_zeros(n_models, n_windows) if want_probs else None
+    if w_valid == 0:
+        return logits, probs
+    wv = w_valid
+    for m in range(n_models):
+        def rows(arr, t, lo, hi):
+            return arr[m, t : t + wv, lo:hi]
+
+        def proj(inputs, wi, b):
+            return lambda t: inputs[t] @ wi + b
+
+        def pair(f, b):
+            return [torch.cat([x, y], dim=1) for x, y in zip(f, b)]
+
+        l1 = pair(*[_lstm_pass(lambda t, d=d: rows(p1, t, 64 * d, 64 * d + 64),
+                               w["wh1"][m, d], H1, t_len, d == 1, bf16)
+                    for d in (0, 1)])
+        l2 = pair(*[_lstm_pass(proj(l1, w["wi2"][m, d], w["b2"][m, d]),
+                               w["wh2"][m, d], H2, t_len, d == 1, bf16)
+                    for d in (0, 1)])
+        l3 = []
+        for d in (0, 1):
+            pm = proj(l2, w["wi3"][m, d], w["b3"][m, d])
+            l3.append(_lstm_pass(
+                lambda t, d=d, pm=pm: pm(t) + rows(p3, t, 512 * d, 512 * d + 512),
+                w["wh3"][m, d], H3, t_len, d == 1, bf16))
+        l3 = pair(*l3)
+        l4 = pair(*[_lstm_pass(proj(l3, w["wi4"][m, d], w["b4"][m, d]),
+                               w["wh4"][m, d], H4, t_len, d == 1, bf16)
+                    for d in (0, 1)])
+        acc = p1.new_zeros(wv, 16)
+        for t in range(t_len):
+            h = _rnd(torch.relu(l4[t] @ w["d1w"][m] + w["d1b"][m]), bf16)
+            h = _rnd(torch.relu(h @ w["d2w"][m] + w["d2b"][m]), bf16)
+            mo = _rnd(torch.relu(h @ w["mow"][m] + w["mob"][m]), bf16)
+            acc = acc + mo @ w["fw"][m, t]
+        feature = _rnd(torch.relu(acc + w["fb"][m]), bf16)
+        lg = feature @ w["fow"][m] + w["fob"][m]
+        logits[m, :wv] = lg
+        if want_probs:
+            probs[m, :wv] = max_prob(lg)
+    return logits, probs
+
+
+def max_prob(logits: torch.Tensor) -> torch.Tensor:
+    """Max softmax probability, as the kernels compute it: 1/sum(exp(l-max))."""
+    mx = logits.max(dim=-1, keepdim=True).values
+    return 1.0 / torch.exp(logits - mx).sum(dim=-1)
+
+
+def stack_logits_plain(ws: dict, sig: torch.Tensor, feats: torch.Tensor, *,
+                       t_len: int, w_valid: int, n_windows: int,
+                       want_probs: bool, bf16: bool):
+    """Both plain halves: per-base rows [N, 64|50] -> (logits, probs)."""
+    n_p = w_valid + t_len - 1 if w_valid else 0
+    p1, p3 = base_rows_plain(ws, sig, feats, n_p, bf16=bf16)
+    return stack_heads_plain(ws, p1, p3, t_len=t_len, w_valid=w_valid,
+                             n_windows=n_windows, want_probs=want_probs,
+                             bf16=bf16)
+
+
+# ------------------------------------------------------------ kernel entries
+
+BASE_ROWS = build.Kernel("base_rows", "reviser_stack",
+                         "nanoreviser_tpu/ops/reviser_kernel.py:283")
+STACK_HEADS = build.Kernel("stack_heads", "reviser_stack",
+                           "nanoreviser_tpu/ops/reviser_kernel.py:283")
+
+
+def _weight_ptrs(ws: dict, order, t_len: int):
+    shapes = stack_shapes(t_len)
+    ptrs = []
+    for k in order:
+        v = ws[k]
+        want = torch.bfloat16 if k in MATRICES else torch.float32
+        if v.dtype != want or tuple(v.shape[1:]) != shapes[k] or not v.is_contiguous():
+            raise ValueError(f"weight {k}: {v.dtype} {tuple(v.shape)}, want "
+                             f"{want} [M, {shapes[k]}] contiguous")
+        if v.shape[0] != 2:
+            raise ValueError(f"weight {k}: the kernels take exactly 2 models")
+        ptrs.append(v.data_ptr())
+    return ptrs
+
+
+def base_rows(ws: dict, sig: torch.Tensor, feats: torch.Tensor, n_rows: int,
+              *, t_len: int):
+    """Per-base-row half of the stack: (p1 [2, n_rows, 128], p3 [2, n_rows,
+    1024]) f32. CPU tensors take the bf16 plain version; CUDA tensors launch
+    the kernel."""
+    if sig.device.type == "cpu":
+        return base_rows_plain(ws, sig, feats, n_rows, bf16=True)
+    build.require_cuda(sig, feats)
+    if sig.dtype != torch.bfloat16 or sig.dim() != 2 or sig.shape[1] != QP:
+        raise ValueError(f"sig must be bf16 [N, {QP}], got {sig.dtype} "
+                         f"{tuple(sig.shape)}")
+    if feats.dtype != torch.float32 or feats.shape[1:] != (6,):
+        raise ValueError(f"feats must be f32 [N, 6], got {feats.dtype} "
+                         f"{tuple(feats.shape)}")
+    if not (sig.is_contiguous() and feats.is_contiguous()):
+        raise ValueError("sig and feats must be contiguous")
+    if n_rows > min(sig.shape[0], feats.shape[0]):
+        raise ValueError(f"n_rows={n_rows} exceeds the input rows")
+    dev = sig.device
+    p1 = torch.empty((2, n_rows, 2 * 4 * H1), dtype=torch.float32, device=dev)
+    p3 = torch.empty((2, n_rows, 2 * 4 * H3), dtype=torch.float32, device=dev)
+    if n_rows == 0:
+        return p1, p3
+    ptrs = _weight_ptrs(ws, BASE_ORDER, t_len)
+    BASE_ROWS.launch(
+        "nr_base_rows",
+        build.ptr_array(ptrs), build.c_ptr(sig), build.c_ptr(feats),
+        build.c_int(n_rows), build.c_ptr(p1), build.c_ptr(p3),
+        build.stream_of(dev))
+    return p1, p3
+
+
+def stack_heads(ws: dict, p1: torch.Tensor, p3: torch.Tensor, *, t_len: int,
+                w_valid: int, n_windows: int, want_probs: bool):
+    """Per-window half of the stack: (logits [2, n_windows, 6], probs
+    [2, n_windows] or None), computed for windows < w_valid (the rest stay
+    zero). CPU tensors take the bf16 plain version; CUDA tensors launch the
+    kernel, over the w_valid windows only."""
+    if p1.device.type == "cpu":
+        return stack_heads_plain(ws, p1, p3, t_len=t_len, w_valid=w_valid,
+                                 n_windows=n_windows, want_probs=want_probs)
+    build.require_cuda(p1, p3)
+    n_p = p1.shape[1]
+    if w_valid and n_p < w_valid + t_len - 1:
+        raise ValueError(f"p1/p3 hold {n_p} rows; {w_valid} windows need "
+                         f"{w_valid + t_len - 1}")
+    if w_valid > n_windows:
+        raise ValueError(f"w_valid={w_valid} exceeds n_windows={n_windows}")
+    for name, arr, width in (("p1", p1, 128), ("p3", p3, 1024)):
+        if (arr.dtype != torch.float32 or arr.shape != (2, n_p, width)
+                or not arr.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 [2, {n_p}, "
+                             f"{width}], got {arr.dtype} {tuple(arr.shape)}")
+    dev = p1.device
+    logits = torch.zeros((2, n_windows, NB_MAX), dtype=torch.float32, device=dev)
+    probs = (torch.zeros((2, n_windows), dtype=torch.float32, device=dev)
+             if want_probs else None)
+    if w_valid == 0:
+        return logits, probs
+    ptrs = _weight_ptrs(ws, STACK_ORDER, t_len)
+    STACK_HEADS.launch(
+        "nr_stack_heads",
+        build.ptr_array(ptrs), build.c_ptr(p1), build.c_ptr(p3),
+        build.c_int(n_p), build.c_int(t_len), build.c_int(w_valid),
+        build.c_int(n_windows), build.c_ptr(logits),
+        build.c_ptr(probs) if probs is not None else build.c_void_p(0),
+        build.stream_of(dev))
+    return logits, probs
+
+
+def stack_logits_full(ws: dict, sig: torch.Tensor, feats: torch.Tensor, *,
+                      t_len: int, w_valid: int, want_probs: bool,
+                      n_windows: int | None = None):
+    """Logits [2, W, 6] f32 (+ max prob [2, W]) of both models for the
+    windows of per-base rows ``sig`` (bf16 [N, 64], the gather output) and
+    ``feats`` (f32 [N, 6]); W defaults to N - t_len. Only windows < w_valid
+    are computed. CUDA tensors run the two kernels; CPU tensors their bf16
+    plain versions."""
+    if n_windows is None:
+        n_windows = sig.shape[0] - t_len
+    n_p = w_valid + t_len - 1 if w_valid else 0
+    p1, p3 = base_rows(ws, sig, feats, n_p, t_len=t_len)
+    return stack_heads(ws, p1, p3, t_len=t_len, w_valid=w_valid,
+                       n_windows=n_windows, want_probs=want_probs)

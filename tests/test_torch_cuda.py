@@ -1,0 +1,147 @@
+"""CUDA kernels vs their plain versions, on the card (marker ``cuda``).
+
+These tests need an NVIDIA GPU with nvcc and skip without one. On the card:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+They hold the window gather bit-exact against its plain version, the two
+reviser-stack kernels against the bf16 plain version (max |dlogit| <= 0.05,
+argmax agreement >= 0.995), and the engine's labels on the card against the
+CPU engine's f32 labels (agreement >= 0.98), at small sizes; and they check
+that the engine's device step never makes the host wait for the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nanoreviser_torch.ops import reviser_kernel as rk
+from nanoreviser_torch.ops.window_gather import window_gather, window_gather_plain
+
+pytestmark = pytest.mark.cuda
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _weights(seed):
+    from nanoreviser_torch.models import ReviserConfig, init_reviser_params
+    from nanoreviser_torch.models.fused import fold_inference_params
+    from nanoreviser_torch.models.reviser import randomize_inference_stats
+
+    per_model = []
+    for k, nc in enumerate((6, 5)):
+        gen = torch.Generator().manual_seed(seed + k)
+        p = randomize_inference_stats(
+            init_reviser_params(gen, ReviserConfig(window=11, n_classes=nc)), gen)
+        per_model.append(rk.pack_stack_weights(fold_inference_params(p), 11))
+    return rk.stack_models(per_model)
+
+
+def test_gather_kernel_bit_exact():
+    dev = _card()
+    rng = np.random.default_rng(0)
+    n, s = 1000, 20000
+    sig = torch.tensor(rng.integers(-2000, 2000, s), dtype=torch.int16, device=dev)
+    pos0 = torch.tensor(np.sort(rng.integers(-30, s, n)), dtype=torch.int32, device=dev)
+    vlen = torch.tensor(rng.integers(1, 51, n), dtype=torch.int32, device=dev)
+    rid = torch.tensor(rng.integers(0, 7, n), dtype=torch.int32, device=dev)
+    shift = torch.tensor(rng.uniform(400, 500, 256), dtype=torch.float32, device=dev)
+    scale = torch.tensor(rng.uniform(5, 50, 256), dtype=torch.float32, device=dev)
+    args = (sig, pos0, vlen, rid, shift, scale, 900)
+    got = window_gather(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, window_gather_plain(*args))
+    assert not got[900:].any()
+
+
+def test_stack_kernels_match_bf16_plain():
+    dev = _card()
+    ws = rk.weights_to_device(_weights(5), dev)
+    rng = np.random.default_rng(1)
+    n_win, t = 700, 11
+    n = n_win + t
+    sig = torch.tensor(rng.normal(0, 1, (n, 64)), dtype=torch.float32)
+    sig[:, 50:] = 0
+    sig = sig.to(torch.bfloat16).to(dev)
+    feats = torch.tensor(rng.normal(0.5, 0.3, (n, 6)), dtype=torch.float32, device=dev)
+    w_valid = 650                                 # not a multiple of 16
+    p1, p3 = rk.base_rows(ws, sig, feats, w_valid + t - 1, t_len=t)
+    q1, q3 = rk.base_rows_plain(ws, sig, feats, w_valid + t - 1)
+    assert float((p1 - q1).abs().max()) <= 0.05
+    assert float((p3 - q3).abs().max()) <= 0.05
+    lg, pr = rk.stack_heads(ws, p1, p3, t_len=t, w_valid=w_valid,
+                            n_windows=n_win, want_probs=True)
+    lp, pp = rk.stack_heads_plain(ws, p1, p3, t_len=t, w_valid=w_valid,
+                                  n_windows=n_win, want_probs=True)
+    torch.cuda.synchronize()
+    for m, nc in enumerate((6, 5)):
+        assert float((lg[m, :w_valid, :nc] - lp[m, :w_valid, :nc]).abs().max()) <= 0.05
+        agree = (lg[m, :w_valid].argmax(-1) == lp[m, :w_valid].argmax(-1)).float().mean()
+        assert float(agree) >= 0.995
+    assert float((pr[:, :w_valid] - pp[:, :w_valid]).abs().max()) <= 0.05
+    assert not lg[:, w_valid:].any() and not pr[:, w_valid:].any()
+
+
+def _engine_inputs(tmp_path):
+    """(weight paths, [(name, ReadData)]) of 4 synthetic reads."""
+    import os
+
+    from nanoreviser_torch.io import get_read_data
+    from nanoreviser_torch.io.synthetic import write_synthetic_dir
+    from nanoreviser_torch.models import (
+        ReviserConfig, init_reviser_params, save_keras_weights)
+    from nanoreviser_torch.models.reviser import randomize_inference_stats
+
+    names = write_synthetic_dir(tmp_path / "f5", 4, (800, 1500), seed=3)
+    paths = []
+    for k, nc in enumerate((6, 5)):
+        gen = torch.Generator().manual_seed(40 + k)
+        p = randomize_inference_stats(
+            init_reviser_params(gen, ReviserConfig(window=11, n_classes=nc)), gen)
+        paths.append(str(tmp_path / f"m{k}.h5"))
+        save_keras_weights(p, paths[-1], 11, nc)
+    return paths, [(n, get_read_data(os.path.join(tmp_path, "f5", n))) for n in names]
+
+
+def test_engine_on_card_matches_cpu_engine(tmp_path):
+    _card()
+    from nanoreviser_torch.infer import StreamingReviser
+
+    paths, reads = _engine_inputs(tmp_path)
+    got = {n: y for n, _, y, _ in StreamingReviser(
+        *paths, batch_windows=2048, device="cuda").revise_stream(reads, emit="labels")}
+    want = {n: y for n, _, y, _ in StreamingReviser(
+        *paths, batch_windows=2048, device="cpu").revise_stream(reads, emit="labels")}
+    agree = np.mean(np.concatenate([got[n] == want[n] for n, _ in reads]))
+    assert agree >= 0.98
+
+
+def test_device_step_never_waits_for_the_device(tmp_path):
+    """Decode, gather, stack, argmax and phred only queue work on the card,
+    so the host packs the next batch while this one runs."""
+    _card()
+    from nanoreviser_torch.infer import StreamingReviser
+    from nanoreviser_torch.infer.wire import encode_read, wire_to_tensors
+    from nanoreviser_torch.signal import compact_read_numpy
+
+    paths, reads = _engine_inputs(tmp_path)
+    eng = StreamingReviser(*paths, batch_windows=2048, emit_quality=True,
+                           device="cuda")
+    packed, tier, n = eng.pack_batch(
+        [(name, encode_read(compact_read_numpy(rd))) for name, rd in reads])
+    assert n >= 1
+    v = wire_to_tensors(packed, eng.device)
+    step = (v, tier, int(packed["wvalid"][0]), int(packed["nv"][0]))
+    want = eng._device_step(*step)              # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng._device_step(*step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
