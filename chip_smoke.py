@@ -17,7 +17,20 @@ Phases, each printing one JSON line:
              0.05) and against the f32 plain version with TF32 off
              (agreement >= 0.99 over windows whose f32 top-2 margin exceeds
              1e-3, atol 0.15); times kernels and plain versions.
-5. e2e     - writes 40 synthetic fast5 reads of ~10k bases, random weights
+5. windows - the pre-gathered-window path on the same synthetic reads:
+             windowed host prep (prep_read_numpy) of reads until there are
+             >= 16,384 windows, then on the card device_preprocess_batch,
+             the conv branch and stack_logits_multi for both models, plus
+             one stack_logits_single launch; launch counts are zeroed just
+             before and read just after. Holds the stack_windows kernel
+             against its bf16 plain version (max |dlogit| <= 0.05, argmax
+             agreement >= 0.995) and the f32 model with TF32 off (atol 0.15,
+             agreement >= 0.99 over windows whose f32 top-2 margin exceeds
+             1e-3), the single-model launch equal to model 1 of the pair,
+             and each read's model-1 labels against the main path's (B1 +
+             B2) labels (agreement >= 0.98); merges each read and checks the
+             sequences' plausibility; times kernel and plain version.
+6. e2e     - writes 40 synthetic fast5 reads of ~10k bases, random weights
              (the port's init + save_keras_weights), and runs the CLI in model
              mode for fastq and fasta: one output file per read, no failed
              read, every kernel launched. Launch counts are zeroed just
@@ -33,6 +46,7 @@ non-zero without that line.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +60,7 @@ SEED = 20261016
 N_READS = 40
 READ_BASES = (9000, 11000)
 WINDOW = 11
+WINDOWS_BATCH = 16384           # the JAX engine's batch on its non-Pallas path
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12      # HBM3
 
@@ -177,7 +192,7 @@ def phase_gather(tmp: str, weights):
     bytes_moved = (sig_bytes + 3 * 4 * n_rows_g + 2 * 4 * 256
                    + n_rows_g * out.shape[1] * 2)
     ops = 2 * rows_valid * 50
-    bound_ms = max(bytes_moved / H100_BYTES_PER_S, ops / H100_BF16_FLOPS) * 1e3
+    bound_ms, bound_by = bound(ops, bytes_moved)
     emit({"phase": "gather", "reads_written": N_READS,
           "write_seconds": round(write_s, 3), "reads_in_batch": n_packed,
           "windows": w_valid, "rows": n_rows_g, "rows_valid": rows_valid,
@@ -187,9 +202,15 @@ def phase_gather(tmp: str, weights):
            "source": "nanoreviser_torch/csrc/window_gather.cu",
            "replaces": WINDOW_GATHER.replaces, "max_abs_err": max_err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_moved / H100_BYTES_PER_S
-           >= ops / H100_BF16_FLOPS else "operations", "library_ms": None}
+           "bound_by": bound_by, "library_ms": None}
     return eng, dec, out, tier, w_valid, fast5_dir, names, row
+
+
+def bound(ops: float, nbytes: float):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the bf16 peak."""
+    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def _agreement(a, b, margin_ref=None, min_margin=0.0):
@@ -290,24 +311,19 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights):
         ws, p1, p3, t_len=t, w_valid=w_valid, n_windows=n_win,
         want_probs=True), reps=2)
 
-    per_row = sum(a * b for a, b in (
-        (50, 400), (400, 400), (400, 64), (50, 64), (6, 128), (64, 1024)))
+    # base_rows runs the conv branch in dense form: one product per matrix
+    # of the packed shapes; stack_heads the executed per-window MACs
+    shapes = rk.stack_shapes(t)
+    per_row = sum(math.prod(shapes[k])
+                  for k in ("cw1", "cw2", "cc", "ce", "wi1", "wi3s"))
     base_ops = 2 * 2 * n_p * per_row
     w_bytes = sum(x.numel() * x.element_size() for x in ws.values())
     base_bytes = (n_p * (sig.shape[1] * 2 + 6 * 4) + w_bytes
                   + (p1.numel() + p3.numel()) * 4)
-    per_t = (2 * (16 * 64 + 64 * 256 + 128 * 512 + 64 * 256)
-             + 2 * (32 * 256 + 128 * 512 + 256 * 256)
-             + 128 * 128 + 128 * 32 + 32 * 6 + 6 * 16)
-    macs_window = per_t * t + 16 * 6
+    macs_window = rk.executed_mac_counts(t)["per_window"]
     heads_ops = 2 * 2 * w_valid * macs_window
     heads_bytes = ((p1.numel() + p3.numel()) * 4 + w_bytes
                    + (logits.numel() + probs.numel()) * 4)
-
-    def bound(ops, nbytes):
-        tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
-        return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
-
     bb, bb_by = bound(base_ops, base_bytes)
     hb, hb_by = bound(heads_ops, heads_bytes)
     emit({"phase": "stack", "windows": w_valid, "rows": n_p,
@@ -336,6 +352,149 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights):
          "bound_by": hb_by, "library_ms": None},
     ]
     return rows
+
+
+def phase_windows(weights, fast5_dir: str, names: list):
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.infer import StreamingReviser
+    from nanoreviser_torch.infer.merge import calibrate_center_offset, merge_revision
+    from nanoreviser_torch.io import get_read_data
+    from nanoreviser_torch.models import (
+        ReviserConfig, load_keras_weights, params_from_numpy)
+    from nanoreviser_torch.models.fused import fold_inference_params, signal_branch_apply
+    from nanoreviser_torch.ops import reviser_kernel as rk
+    from nanoreviser_torch.ops.window_gather import WINDOW_GATHER
+    from nanoreviser_torch.signal import device_preprocess_batch, prep_read_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    loaded = [load_keras_weights(p) for p in weights]
+    t = loaded[0][1]
+    n_classes = [nc for _, _, nc in loaded]
+    fused = [fold_inference_params(p) for p, _, _ in loaded]
+    fused_t = [params_from_numpy(f, dev) for f in fused]
+    ws = rk.weights_to_device(
+        rk.stack_models([rk.pack_stack_weights(f, t) for f in fused]), dev)
+    cfg = ReviserConfig(window=t)
+
+    t0 = time.time()
+    reads, prepped, n_win = [], [], 0
+    for n in names:
+        rd = get_read_data(os.path.join(fast5_dir, n))
+        reads.append((n, rd))
+        prepped.append(prep_read_numpy(rd))
+        n_win += max(rd.n_bases - t, 0)
+        if n_win >= WINDOWS_BATCH:
+            break
+    check(n_win >= WINDOWS_BATCH, f"only {n_win} windows in {len(reads)} reads")
+    prep_s = time.time() - t0
+    row0 = np.cumsum([0] + [p.n_bases for p in prepped])
+    win0 = np.cumsum([0] + [p.n_bases - t for p in prepped])
+    idx = np.concatenate([
+        (row0[k] + np.arange(p.n_bases - t))[:, None] + np.arange(t)[None, :]
+        for k, p in enumerate(prepped)])
+    host = {
+        "win": np.concatenate([p.win for p in prepped]),
+        "vlen": np.concatenate([p.vlen for p in prepped]),
+        "feats": np.concatenate([p.feats for p in prepped]),
+        "shift": np.concatenate([np.full(p.n_bases, p.shift, np.float32) for p in prepped]),
+        "scale": np.concatenate([np.full(p.n_bases, p.scale, np.float32) for p in prepped]),
+        "idx": idx,
+    }
+    d = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    kernels = (WINDOW_GATHER, rk.BASE_ROWS, rk.STACK_HEADS, rk.STACK_WINDOWS)
+
+    # the pre-gathered-window path, once, with the launch counts zeroed
+    for k in kernels:
+        k.launches = 0
+    windows, feats = device_preprocess_batch(d["win"], d["vlen"], d["feats"],
+                                             d["shift"], d["scale"])
+    featw = feats[d["idx"]]
+    sigw = windows[d["idx"]]
+    sig_outs = torch.stack([signal_branch_apply(f, sigw, cfg) for f in fused_t])
+    del sigw
+    logits, probs = rk.stack_logits_multi(ws, featw, sig_outs, t_len=t,
+                                          want_probs=True)
+    one_l, one_p = rk.stack_logits_single(
+        {k: v[0] for k, v in ws.items()}, featw, sig_outs[0], t_len=t,
+        want_probs=True)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    check(launches["stack_windows"] == 2, f"windowed path launches {launches}")
+
+    for name, x in (("logits", logits), ("probs", probs), ("sig_outs", sig_outs)):
+        check(bool(torch.isfinite(x).all()), f"windows: {name} has non-finite values")
+    check(torch.equal(one_l, logits[0]) and torch.equal(one_p, probs[0]),
+          "stack_logits_single != model 1 of stack_logits_multi")
+
+    def dmax(a, b):
+        return max(float((a[m, :, :nc] - b[m, :, :nc]).abs().max())
+                   for m, nc in enumerate(n_classes))
+
+    lp, pp = rk.stack_windows_plain(ws, featw, sig_outs, t_len=t,
+                                    want_probs=True, bf16=True)
+    err = dmax(logits, lp)
+    perr = float((probs - pp).abs().max())
+    agree_bf16 = [_agreement(logits[m], lp[m])[0] for m in range(2)]
+    check(err <= 0.05, f"stack_windows vs bf16 plain: max |dlogit| {err}")
+    check(min(agree_bf16) >= 0.995, f"stack_windows vs bf16 plain agreement {agree_bf16}")
+    del lp, pp
+    f32_err, agree_f32, near_ties = 0.0, [], []
+    for m, nc in enumerate(n_classes):
+        lf = rk.stack_logits_reference(fused_t[m], featw, sig_outs[m])
+        f32_err = max(f32_err, float((logits[m, :, :nc] - lf).abs().max()))
+        a, ties = _agreement(logits[m, :, :nc], lf, lf, 1e-3)
+        agree_f32.append(a)
+        near_ties.append(ties)
+    check(f32_err <= 0.15, f"stack_windows vs f32 model max |dlogit| {f32_err}")
+    check(min(agree_f32) >= 0.99, f"stack_windows vs f32 model agreement {agree_f32}")
+
+    # per read: model-1 labels against the main path's (B1 + B2), then merge
+    y1 = logits[0].argmax(-1).cpu().numpy()
+    y2 = logits[1, :, : n_classes[1]].argmax(-1).cpu().numpy()
+    main = {n: y for n, _, y, _ in StreamingReviser(
+        *weights, device="cuda").revise_stream(reads, emit="labels")}
+    per_read, lengths = [], []
+    for k, (n, rd) in enumerate(reads):
+        a, b = y1[win0[k] : win0[k + 1]], y2[win0[k] : win0[k + 1]]
+        per_read.append(float(np.mean(a == main[n])))
+        off, _ = calibrate_center_offset(rd.bases, a, t)
+        seq = merge_revision(rd.bases, a, b, align="center", window=t,
+                             center_offset=off)
+        check(set(seq) <= set("ACGTN") and abs(len(seq) - len(rd.bases))
+              < 0.2 * len(seq), "windows: revised sequence implausible")
+        lengths.append(len(seq))
+    check(min(per_read) >= 0.98, f"windows vs main path labels per read {per_read}")
+
+    ms = cuda_ms(lambda: rk.stack_logits_multi(ws, featw, sig_outs, t_len=t,
+                                               want_probs=True), reps=5)
+    plain_ms = cuda_ms(lambda: rk.stack_windows_plain(
+        ws, featw, sig_outs, t_len=t, want_probs=True, bf16=True), reps=2)
+    macs = rk.executed_mac_counts(t)["per_window_pregathered"]
+    n_models = sig_outs.shape[0]
+    ops = 2 * n_models * n_win * macs
+    w_bytes = sum(ws[k].numel() * ws[k].element_size() for k in rk.WINDOWS_ORDER)
+    nbytes = ((featw.numel() + sig_outs.numel()) * 4 + w_bytes
+              + (logits.numel() + probs.numel()) * 4)
+    bms, bby = bound(ops, nbytes)
+    emit({"phase": "windows", "reads": len(reads), "windows": n_win,
+          "prep_seconds": round(prep_s, 3), "launches": launches,
+          "max_abs_dlogit_vs_bf16_plain": err, "max_abs_dprob_vs_bf16_plain": perr,
+          "agreement_vs_bf16_plain": agree_bf16,
+          "vs_f32_model": {"max_abs_dlogit": f32_err, "argmax_agreement": agree_f32,
+                           "near_ties_margin_1e-3": near_ties},
+          "single_equals_model1": True,
+          "labels_vs_main_path_per_read": per_read, "merged_lengths": lengths,
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+          "macs_per_window_per_model": macs})
+    return {"name": "stack_windows", "route": "cuda",
+            "source": "nanoreviser_torch/csrc/reviser_stack.cu",
+            "replaces": rk.STACK_WINDOWS.replaces, "launches": launches["stack_windows"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": bby, "library_ms": None}
 
 
 def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
@@ -415,10 +574,13 @@ def main() -> int:
         srows = phase_stack(eng, dec, sig, tier, w_valid, weights)
         del eng, dec, sig
         torch.cuda.empty_cache()
+        wrow = phase_windows(weights, fast5_dir, names)
+        torch.cuda.empty_cache()
         launches = phase_e2e(tmp, weights, fast5_dir, names)
     rows = [grow] + srows
     for r in rows:
         r["launches"] = launches[r["name"]]
+    rows.append(wrow)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: r[k] for k in order} for r in rows]})

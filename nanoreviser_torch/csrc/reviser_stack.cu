@@ -1,9 +1,12 @@
-// Fused dual-model reviser stack for Hopper (sm_90a): two kernels.
+// The reviser stack for Hopper (sm_90a): three kernels.
 //
-// Replaces the TPU kernel _kernel_full (nanoreviser_tpu/ops/
-// reviser_kernel.py:283, core _stack_core :92, entry stack_logits_full :678),
-// which does all of the following in one launch over (model, 256 windows).
-// Here the per-base-row work and the per-window work are two launches:
+// base_rows + stack_heads replace the TPU kernel _kernel_full (nanoreviser_tpu/
+// ops/reviser_kernel.py:283, core _stack_core :92, entry stack_logits_full
+// :678), which does all of the following in one launch over (model, 256
+// windows). Here the per-base-row work and the per-window work are two
+// launches. stack_windows (at the end) replaces _kernel (:251, entries
+// stack_logits_multi :611 and stack_logits_pallas :749), the same stack on
+// pre-gathered per-window inputs.
 //
 // base_rows (grid: row blocks x 2 models). Per base row, once:
 //   z1  = bf16(relu(x @ cw1 + cb1))                  50 -> 400
@@ -48,6 +51,23 @@
 //   hidden unit and 1..8 windows: it computes all four gate pre-activations
 //   of its unit, so the gate math and the cell state c stay in registers;
 //   every weight read feeds 1..8 windows, every 16-byte shared read 8.
+//
+// stack_windows (grid: blocks of 16 windows x M = 1 or 2 models). Window w
+// brings its own rows: feats [w][t][6] and the conv-branch output s
+// [m][w][t][64], both f32, rounded to bf16 here. Per (window, t) it runs
+//   layer-1 input  z1 = f_t @ wi1 + b1              6 -> 4*16 per direction
+//   layer-3 signal z3s = s_t @ wi3s                64 -> 4*128 per direction
+// (each in f32 from bf16 operands), then exactly stack_heads' stack core
+// and heads. With no base row shared between windows nothing is hoisted:
+// 6.21 M MACs per window and model at T=11, 13% more than stack_heads.
+//   What bounds it: operations (f32 FMAs on the CUDA cores here; ~1.2 KB
+//   of input per window against ~12 MFLOP).
+//   Design: the block stages its inputs in shared memory as bf16, the
+//   features in buffer A beyond layer 1's output and the conv outputs in
+//   buffer B's units [128, 192), beside where layer 2 writes, so layer 3
+//   reads [l2 | s] as one 192-wide input: wi3's rows, then the direction's
+//   slice of wi3s (row stride 1024). No projection goes through device
+//   memory. Buffers: T x (256 + 192) x 16 x 2 B = 154 KB at T=11.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -245,15 +265,20 @@ __device__ __forceinline__ void load_lanes(const bf16* __restrict__ src,
 }
 
 // One direction of one Bi-LSTM layer over T steps for the block's kG
-// windows. in: shared [T][KIN][kG] (KIN = 0: no input projection); out:
-// shared [T][2H][kG], this direction at units [dir*H, dir*H + H).
-// pg: optional per-row f32 pre-activation input (layer 1: p1 incl. bias;
-// layer 3: the signal part p3), row (w0 + window + t), columns
-// p_off + gate*H + unit.
-template <int H, int KIN, int RPT>
-__device__ void lstm_pass(const bf16* __restrict__ in, bf16* __restrict__ out,
-                          int dir, int T, const bf16* __restrict__ wi,
+// windows. in: shared [T][in_ld][kG], input units [0, KIN) with weights wi
+// ([KIN][wi_ld], gate g of unit j at column g*H + j) and bias b, then
+// (KIN2 > 0) units [KIN, KIN + KIN2) with weights wi2 ([KIN2][wi2_ld]);
+// KIN = 0: no input projection. out: shared [T][out_ld][kG], this direction
+// at units [dir*H, dir*H + H). pg: optional per-row f32 pre-activation
+// input (stack_heads' layer 1: p1 incl. bias; layer 3: the signal part p3),
+// row (w0 + window + t), columns p_off + gate*H + unit. Per step:
+// z = ((x @ wi + b) + pg_t + x2 @ wi2) + h @ wh.
+template <int H, int KIN, int RPT, int KIN2 = 0>
+__device__ void lstm_pass(const bf16* __restrict__ in, int in_ld,
+                          bf16* __restrict__ out, int out_ld, int dir, int T,
+                          const bf16* __restrict__ wi, int wi_ld,
                           const float* __restrict__ b,
+                          const bf16* __restrict__ wi2, int wi2_ld,
                           const bf16* __restrict__ wh,
                           const float* __restrict__ pg, int p_ld, int p_off,
                           int w0, int n_p) {
@@ -273,12 +298,12 @@ __device__ void lstm_pass(const bf16* __restrict__ in, bf16* __restrict__ out,
       for (int r = 0; r < RPT; ++r) acc[g][r] = 0.0f;
 
     if constexpr (KIN > 0) {
-      const bf16* x = in + (size_t)t * KIN * kG + r0;
+      const bf16* x = in + (size_t)t * in_ld * kG + r0;
 #pragma unroll 2
       for (int k = 0; k < KIN; ++k) {
         float xv[RPT];
         load_lanes<RPT>(x + k * kG, xv);
-        const bf16* wk = wi + (size_t)k * 4 * H + j;
+        const bf16* wk = wi + (size_t)k * wi_ld + j;
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           const float wv = __bfloat162float(wk[g * H]);
@@ -303,9 +328,33 @@ __device__ void lstm_pass(const bf16* __restrict__ in, bf16* __restrict__ out,
         for (int g = 0; g < 4; ++g) acc[g][r] += pr[g * H];
       }
     }
+    if constexpr (KIN2 > 0) {
+      const bf16* x = in + ((size_t)t * in_ld + KIN) * kG + r0;
+      float acc2[4][RPT];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) acc2[g][r] = 0.0f;
+#pragma unroll 2
+      for (int k = 0; k < KIN2; ++k) {
+        float xv[RPT];
+        load_lanes<RPT>(x + k * kG, xv);
+        const bf16* wk = wi2 + (size_t)k * wi2_ld + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float wv = __bfloat162float(wk[g * H]);
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) acc2[g][r] = fmaf(xv[r], wv, acc2[g][r]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) acc[g][r] += acc2[g][r];
+    }
     if (s > 0) {
       const int tp = dir ? t + 1 : t - 1;
-      const bf16* hp = out + ((size_t)tp * 2 * H + dir * H) * kG + r0;
+      const bf16* hp = out + ((size_t)tp * out_ld + dir * H) * kG + r0;
       float hacc[4][RPT];
 #pragma unroll
       for (int g = 0; g < 4; ++g)
@@ -328,7 +377,7 @@ __device__ void lstm_pass(const bf16* __restrict__ in, bf16* __restrict__ out,
 #pragma unroll
         for (int r = 0; r < RPT; ++r) acc[g][r] += hacc[g][r];
     }
-    bf16* o = out + ((size_t)t * 2 * H + dir * H + j) * kG + r0;
+    bf16* o = out + ((size_t)t * out_ld + dir * H + j) * kG + r0;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const float ig = hard_sigmoid(acc[0][r]);
@@ -370,42 +419,15 @@ __device__ __forceinline__ void head_dense(const T_IN* __restrict__ in, int K,
     out[j * kG + r0 + r] = bf16_round(fmaxf(acc[r] + bv, 0.0f));
 }
 
-__global__ void __launch_bounds__(kStackThreads, 1)
-stack_heads_kernel(StackPair wp, const float* __restrict__ p1,
-                   const float* __restrict__ p3, int n_p, int T, int w_valid,
-                   int n_windows, float* __restrict__ logits,
-                   float* __restrict__ probs) {
-  const int m = blockIdx.y;
-  const StackWeights& w = wp.m[m];
-  const int w0 = blockIdx.x * kG;
+// The per-t relu heads, the feature, the logits and the max prob of the
+// block's kG windows from layer 4's output B [T][128][kG]; A (>= 11.6 KB)
+// is free and holds the f32 scratch. Writes windows w0 + r < w_valid at
+// row (m * n_windows + w0 + r).
+__device__ void heads_out(const StackWeights& w, bf16* A, const bf16* B,
+                          int T, int m, int w0, int w_valid, int n_windows,
+                          float* __restrict__ logits,
+                          float* __restrict__ probs) {
   const int tid = threadIdx.x;
-  extern __shared__ uint4 smem_u4[];
-  bf16* A = reinterpret_cast<bf16*>(smem_u4);   // [T][256][kG]
-  bf16* B = A + (size_t)T * 256 * kG;           // [T][128][kG]
-  const float* p1m = p1 + (size_t)m * n_p * 128;
-  const float* p3m = p3 + (size_t)m * n_p * 1024;
-
-  // layer 1 (H=16): z = p1_t + h @ wh1            -> A as [T][32][kG]
-  for (int d = 0; d < 2; ++d)
-    lstm_pass<kH1, 0, 1>(nullptr, A, d, T, nullptr, nullptr,
-                         w.wh1 + d * kH1 * 4 * kH1, p1m, 128, d * 64, w0, n_p);
-  // layer 2 (H=64): z = (l1_t @ wi2 + b2) + h @ wh2   -> B as [T][128][kG]
-  for (int d = 0; d < 2; ++d)
-    lstm_pass<kH2, 2 * kH1, 4>(A, B, d, T, w.wi2 + d * 2 * kH1 * 4 * kH2,
-                               w.b2 + d * 4 * kH2, w.wh2 + d * kH2 * 4 * kH2,
-                               nullptr, 0, 0, w0, n_p);
-  // layer 3 (H=128): z = ((l2_t @ wi3 + b3) + p3_t) + h @ wh3 -> A [T][256][kG]
-  for (int d = 0; d < 2; ++d)
-    lstm_pass<kH3, 2 * kH2, 8>(B, A, d, T, w.wi3 + d * 2 * kH2 * 4 * kH3,
-                               w.b3 + d * 4 * kH3, w.wh3 + d * kH3 * 4 * kH3,
-                               p3m, 1024, d * 512, w0, n_p);
-  // layer 4 (H=64): z = (l3_t @ wi4 + b4) + h @ wh4   -> B as [T][128][kG]
-  for (int d = 0; d < 2; ++d)
-    lstm_pass<kH4, 2 * kH3, 4>(A, B, d, T, w.wi4 + d * 2 * kH3 * 4 * kH4,
-                               w.b4 + d * 4 * kH4, w.wh4 + d * kH4 * 4 * kH4,
-                               nullptr, 0, 0, w0, n_p);
-
-  // heads; A is free now and holds the f32 scratch
   float* h1 = reinterpret_cast<float*>(A);   // [128][kG]
   float* h2 = h1 + 128 * kG;                 // [32][kG]
   float* mo = h2 + 32 * kG;                  // [6][kG]
@@ -455,6 +477,140 @@ stack_heads_kernel(StackPair wp, const float* __restrict__ p1,
   }
 }
 
+__global__ void __launch_bounds__(kStackThreads, 1)
+stack_heads_kernel(StackPair wp, const float* __restrict__ p1,
+                   const float* __restrict__ p3, int n_p, int T, int w_valid,
+                   int n_windows, float* __restrict__ logits,
+                   float* __restrict__ probs) {
+  const int m = blockIdx.y;
+  const StackWeights& w = wp.m[m];
+  const int w0 = blockIdx.x * kG;
+  extern __shared__ uint4 smem_u4[];
+  bf16* A = reinterpret_cast<bf16*>(smem_u4);   // [T][256][kG]
+  bf16* B = A + (size_t)T * 256 * kG;           // [T][128][kG]
+  const float* p1m = p1 + (size_t)m * n_p * 128;
+  const float* p3m = p3 + (size_t)m * n_p * 1024;
+
+  // layer 1 (H=16): z = p1_t + h @ wh1            -> A as [T][32][kG]
+  for (int d = 0; d < 2; ++d)
+    lstm_pass<kH1, 0, 1>(nullptr, 0, A, 2 * kH1, d, T, nullptr, 0, nullptr,
+                         nullptr, 0, w.wh1 + d * kH1 * 4 * kH1, p1m, 128,
+                         d * 64, w0, n_p);
+  // layer 2 (H=64): z = (l1_t @ wi2 + b2) + h @ wh2   -> B as [T][128][kG]
+  for (int d = 0; d < 2; ++d)
+    lstm_pass<kH2, 2 * kH1, 4>(A, 2 * kH1, B, 2 * kH2, d, T,
+                               w.wi2 + d * 2 * kH1 * 4 * kH2, 4 * kH2,
+                               w.b2 + d * 4 * kH2, nullptr, 0,
+                               w.wh2 + d * kH2 * 4 * kH2, nullptr, 0, 0, w0, n_p);
+  // layer 3 (H=128): z = ((l2_t @ wi3 + b3) + p3_t) + h @ wh3 -> A [T][256][kG]
+  for (int d = 0; d < 2; ++d)
+    lstm_pass<kH3, 2 * kH2, 8>(B, 2 * kH2, A, 2 * kH3, d, T,
+                               w.wi3 + d * 2 * kH2 * 4 * kH3, 4 * kH3,
+                               w.b3 + d * 4 * kH3, nullptr, 0,
+                               w.wh3 + d * kH3 * 4 * kH3, p3m, 1024, d * 512,
+                               w0, n_p);
+  // layer 4 (H=64): z = (l3_t @ wi4 + b4) + h @ wh4   -> B as [T][128][kG]
+  for (int d = 0; d < 2; ++d)
+    lstm_pass<kH4, 2 * kH3, 4>(A, 2 * kH3, B, 2 * kH4, d, T,
+                               w.wi4 + d * 2 * kH3 * 4 * kH4, 4 * kH4,
+                               w.b4 + d * 4 * kH4, nullptr, 0,
+                               w.wh4 + d * kH4 * 4 * kH4, nullptr, 0, 0, w0, n_p);
+  heads_out(w, A, B, T, m, w0, w_valid, n_windows, logits, probs);
+}
+
+// -------------------------------------------------------- stack_windows
+
+struct PreWeights {  // one model: the per-(window, t) projections' weights
+  const bf16* wi1; const float* b1; const bf16* wi3s;
+};
+struct WindowsArgs { PreWeights p[2]; StackWeights s[2]; };
+
+__global__ void __launch_bounds__(kStackThreads, 1)
+stack_windows_kernel(WindowsArgs wa, const float* __restrict__ feats,
+                     const float* __restrict__ sig, int n_win, int T,
+                     float* __restrict__ logits, float* __restrict__ probs) {
+  const int m = blockIdx.y;
+  const PreWeights& pw = wa.p[m];
+  const StackWeights& w = wa.s[m];
+  const int w0 = blockIdx.x * kG;
+  const int nv = min(kG, n_win - w0);
+  const int tid = threadIdx.x;
+  extern __shared__ uint4 smem_u4[];
+  bf16* A = reinterpret_cast<bf16*>(smem_u4);   // [T][256][kG]
+  bf16* B = A + (size_t)T * 256 * kG;           // [T][192][kG]
+  bf16* F = A + (size_t)T * 2 * kH1 * kG;       // [T][6][kG], after layer 1's out
+
+  // stage the block's inputs as bf16: the features into F, the conv
+  // outputs into B's units [128, 192), beside where layer 2 writes its
+  // output, so that layer 3 reads [l2 | sig] as one 192-wide input.
+  // Windows past n_win are zero and never written out.
+  for (int e = tid; e < kG * T * 6; e += kStackThreads) {
+    const int r = e / (T * 6), t = (e / 6) % T, k = e % 6;
+    const float v = r < nv ? feats[((size_t)(w0 + r) * T + t) * 6 + k] : 0.0f;
+    F[((size_t)t * 6 + k) * kG + r] = __float2bfloat16_rn(v);
+  }
+  const float* sm = sig + ((size_t)m * n_win + w0) * T * 64;
+  for (int e = tid; e < kG * T * 64; e += kStackThreads) {
+    const int r = e / (T * 64), t = (e / 64) % T, k = e % 64;
+    const float v = r < nv ? sm[e] : 0.0f;
+    B[((size_t)t * 192 + 2 * kH2 + k) * kG + r] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+
+  // layer 1 (H=16): z = (f_t @ wi1 + b1) + h @ wh1      -> A as [T][32][kG]
+  for (int d = 0; d < 2; ++d)
+    lstm_pass<kH1, 6, 1>(F, 6, A, 2 * kH1, d, T, pw.wi1 + d * 4 * kH1,
+                         2 * 4 * kH1, pw.b1 + d * 4 * kH1, nullptr, 0,
+                         w.wh1 + d * kH1 * 4 * kH1, nullptr, 0, 0, 0, 0);
+  // layer 2 (H=64): z = (l1_t @ wi2 + b2) + h @ wh2  -> B units [0,128) of 192
+  for (int d = 0; d < 2; ++d)
+    lstm_pass<kH2, 2 * kH1, 4>(A, 2 * kH1, B, 192, d, T,
+                               w.wi2 + d * 2 * kH1 * 4 * kH2, 4 * kH2,
+                               w.b2 + d * 4 * kH2, nullptr, 0,
+                               w.wh2 + d * kH2 * 4 * kH2, nullptr, 0, 0, 0, 0);
+  // layer 3 (H=128): z = ((l2_t @ wi3 + b3) + s_t @ wi3s) + h @ wh3
+  //                                                   -> A as [T][256][kG]
+  for (int d = 0; d < 2; ++d)
+    lstm_pass<kH3, 2 * kH2, 8, 64>(B, 192, A, 2 * kH3, d, T,
+                                   w.wi3 + d * 2 * kH2 * 4 * kH3, 4 * kH3,
+                                   w.b3 + d * 4 * kH3, pw.wi3s + d * 4 * kH3,
+                                   2 * 4 * kH3, w.wh3 + d * kH3 * 4 * kH3,
+                                   nullptr, 0, 0, 0, 0);
+  // layer 4 (H=64): z = (l3_t @ wi4 + b4) + h @ wh4     -> B as [T][128][kG]
+  for (int d = 0; d < 2; ++d)
+    lstm_pass<kH4, 2 * kH3, 4>(A, 2 * kH3, B, 2 * kH4, d, T,
+                               w.wi4 + d * 2 * kH3 * 4 * kH4, 4 * kH4,
+                               w.b4 + d * 4 * kH4, nullptr, 0,
+                               w.wh4 + d * kH4 * 4 * kH4, nullptr, 0, 0, 0, 0);
+  heads_out(w, A, B, T, m, w0, n_win, n_win, logits, probs);
+}
+
+// Model m's stack weights from the stacked [M, ...] arrays, in STACK_ORDER.
+StackWeights stack_weights_of(const void* const* w, int m, int T) {
+  const size_t sizes[20] = {
+      2 * kH1 * 4 * kH1,
+      2 * 2 * kH1 * 4 * kH2, 2 * 4 * kH2, 2 * kH2 * 4 * kH2,
+      2 * 2 * kH2 * 4 * kH3, 2 * 4 * kH3, 2 * kH3 * 4 * kH3,
+      2 * 2 * kH3 * 4 * kH4, 2 * 4 * kH4, 2 * kH4 * 4 * kH4,
+      128 * 128, 128, 128 * 32, 32, 32 * kNB, kNB,
+      (size_t)T * kNB * 16, 16, 16 * kNB, kNB};
+  const bool is_bf16[20] = {1, 1, 0, 1, 1, 0, 1, 1, 0, 1,
+                            1, 0, 1, 0, 1, 0, 1, 0, 1, 0};
+  const void* p[20];
+  for (int i = 0; i < 20; ++i)
+    p[i] = is_bf16[i] ? (const void*)((const bf16*)w[i] + m * sizes[i])
+                      : (const void*)((const float*)w[i] + m * sizes[i]);
+  return StackWeights{
+      (const bf16*)p[0],
+      (const bf16*)p[1], (const float*)p[2], (const bf16*)p[3],
+      (const bf16*)p[4], (const float*)p[5], (const bf16*)p[6],
+      (const bf16*)p[7], (const float*)p[8], (const bf16*)p[9],
+      (const bf16*)p[10], (const float*)p[11], (const bf16*)p[12],
+      (const float*)p[13], (const bf16*)p[14], (const float*)p[15],
+      (const bf16*)p[16], (const float*)p[17], (const bf16*)p[18],
+      (const float*)p[19]};
+}
+
 }  // namespace
 
 extern "C" int nr_base_rows(const void* const* w, const bf16* sig,
@@ -490,31 +646,8 @@ extern "C" int nr_stack_heads(const void* const* w, const float* p1,
                               const float* p3, int n_p, int T, int w_valid,
                               int n_windows, float* logits, float* probs,
                               cudaStream_t stream) {
-  const size_t sizes[20] = {
-      2 * kH1 * 4 * kH1,
-      2 * 2 * kH1 * 4 * kH2, 2 * 4 * kH2, 2 * kH2 * 4 * kH2,
-      2 * 2 * kH2 * 4 * kH3, 2 * 4 * kH3, 2 * kH3 * 4 * kH3,
-      2 * 2 * kH3 * 4 * kH4, 2 * 4 * kH4, 2 * kH4 * 4 * kH4,
-      128 * 128, 128, 128 * 32, 32, 32 * kNB, kNB,
-      (size_t)T * kNB * 16, 16, 16 * kNB, kNB};
-  const bool is_bf16[20] = {1, 1, 0, 1, 1, 0, 1, 1, 0, 1,
-                            1, 0, 1, 0, 1, 0, 1, 0, 1, 0};
   StackPair wp;
-  for (int m = 0; m < 2; ++m) {
-    const void* p[20];
-    for (int i = 0; i < 20; ++i)
-      p[i] = is_bf16[i] ? (const void*)((const bf16*)w[i] + m * sizes[i])
-                        : (const void*)((const float*)w[i] + m * sizes[i]);
-    wp.m[m] = StackWeights{
-        (const bf16*)p[0],
-        (const bf16*)p[1], (const float*)p[2], (const bf16*)p[3],
-        (const bf16*)p[4], (const float*)p[5], (const bf16*)p[6],
-        (const bf16*)p[7], (const float*)p[8], (const bf16*)p[9],
-        (const bf16*)p[10], (const float*)p[11], (const bf16*)p[12],
-        (const float*)p[13], (const bf16*)p[14], (const float*)p[15],
-        (const bf16*)p[16], (const float*)p[17], (const bf16*)p[18],
-        (const float*)p[19]};
-  }
+  for (int m = 0; m < 2; ++m) wp.m[m] = stack_weights_of(w, m, T);
   const size_t smem = (size_t)T * (256 + 128) * kG * sizeof(bf16);
   // T >= 2 so the heads' f32 scratch (~11 KB) fits in buffer A
   if (T < 2 || smem > 232448) return (int)cudaErrorInvalidValue;
@@ -525,5 +658,34 @@ extern "C" int nr_stack_heads(const void* const* w, const float* p1,
   dim3 grid((w_valid + kG - 1) / kG, 2);
   stack_heads_kernel<<<grid, kStackThreads, smem, stream>>>(
       wp, p1, p3, n_p, T, w_valid, n_windows, logits, probs);
+  return (int)cudaGetLastError();
+}
+
+// w: WINDOWS_ORDER of ops/reviser_kernel.py (wi1, b1, wi3s, then
+// STACK_ORDER), each stacked over n_models (1 or 2) models. feats f32
+// [n_win, T, 6], sig f32 [n_models, n_win, T, 64]; logits f32
+// [n_models, n_win, 6], probs f32 [n_models, n_win] or null.
+extern "C" int nr_stack_windows(const void* const* w, int n_models,
+                                const float* feats, const float* sig,
+                                int n_win, int T, float* logits, float* probs,
+                                cudaStream_t stream) {
+  if (n_models < 1 || n_models > 2 || n_win < 1) return (int)cudaErrorInvalidValue;
+  WindowsArgs wa = {};
+  for (int m = 0; m < n_models; ++m) {
+    wa.p[m] = PreWeights{(const bf16*)w[0] + (size_t)m * 6 * 8 * kH1,
+                         (const float*)w[1] + (size_t)m * 8 * kH1,
+                         (const bf16*)w[2] + (size_t)m * 64 * 8 * kH3};
+    wa.s[m] = stack_weights_of(w + 3, m, T);
+  }
+  const size_t smem = (size_t)T * (256 + 192) * kG * sizeof(bf16);
+  // T >= 2 so the heads' f32 scratch (~11 KB) fits in buffer A
+  if (T < 2 || smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      stack_windows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n_win + kG - 1) / kG, n_models);
+  stack_windows_kernel<<<grid, kStackThreads, smem, stream>>>(
+      wa, feats, sig, n_win, T, logits, probs);
   return (int)cudaGetLastError();
 }

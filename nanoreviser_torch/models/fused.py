@@ -9,9 +9,9 @@ linear input projection, so they fold exactly into the next layer's (wi, b):
     bn_r2 -> total_rnn1.wi[:128]     (the read half of the concat input)
     bn_t1 -> total_rnn2.wi           (all 256 input rows)
 
-Folding runs once at load time in numpy f64. ``signal_branch_apply`` and
-``lstm_stack_apply`` are the eager torch f32 forwards on folded params (the
-conv branch keeps its BNs).
+Folding runs once at load time in numpy f64. ``signal_branch_apply``,
+``lstm_stack_apply`` and ``fused_forward`` are the eager torch f32 forwards
+on folded params (the conv branch keeps its BNs).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .layers import BN_EPS, bilstm, dense
-from .reviser import signal_branch
+from .reviser import ReviserConfig, signal_branch
 
 
 def bn_affine(bn: dict) -> tuple[np.ndarray, np.ndarray]:
@@ -81,3 +81,11 @@ def lstm_stack_apply(fused: dict, feats: torch.Tensor,
     main = dense(fused["main_out"], h, torch.relu)
     feature = dense(fused["feature"], main.reshape(main.shape[0], -1), torch.relu)
     return dense(fused["final_out"], feature)
+
+
+def fused_forward(fused: dict, signal: torch.Tensor, feats: torch.Tensor,
+                  cfg: ReviserConfig) -> torch.Tensor:
+    """Full inference forward on folded params; returns probs [B, C]."""
+    sig_out = signal_branch_apply(fused, signal, cfg)
+    logits = lstm_stack_apply(fused, feats, sig_out).to(torch.float32)
+    return torch.softmax(logits, dim=-1)

@@ -1,5 +1,5 @@
-"""The fused dual-model reviser stack: weight packing, plain versions, and
-the entry to the two CUDA kernels of ``csrc/reviser_stack.cu``.
+"""The reviser stack: weight packing, plain versions, and the entries to the
+three CUDA kernels of ``csrc/reviser_stack.cu``.
 
 Replaces the TPU kernel ``_kernel_full`` (``nanoreviser_tpu/ops/
 reviser_kernel.py:283``, entry ``stack_logits_full`` ``:678``). Per base row
@@ -15,6 +15,14 @@ w of a batch, window w covers rows w..w+T-1. The work splits in two:
   ``feature = relu(sum_t main_t @ fw[t] + fb)``, the logits
   ``feature @ fow + fob`` and optionally the max softmax probability
   ``1 / sum(exp(l - max))``.
+
+The pre-gathered-window entry ``stack_logits_multi`` replaces the TPU kernel
+``_kernel`` (``nanoreviser_tpu/ops/reviser_kernel.py:251``, entries
+``stack_logits_multi`` ``:611`` and ``stack_logits_pallas`` ``:749``): each
+window brings its own T rows of features and conv-branch output, so nothing
+is shared between windows. One kernel, ``stack_windows``, runs the layer-1
+and layer-3-signal projections per (window, t) and then the same stack core
+and heads as ``stack_heads``, for 1 or 2 models.
 
 Rounding follows the TPU kernel: matmul operands are bf16 with f32
 accumulation; z1, z2 and s64 are rounded to bf16 (``:339-348``); p1/p3
@@ -32,8 +40,9 @@ model axis.
 
 Two plain versions sit beside the kernels: the f32 one (the CPU engine's
 path, held against the JAX f32 model) and the bf16-operand one (held
-against the TPU kernel in interpret mode and, on the card, against the CUDA
-kernels).
+against the TPU kernels in interpret mode and, on the card, against the CUDA
+kernels). Both share one stack core, fed per step either base-row slices
+(``stack_heads_plain``) or per-window projections (``stack_windows_plain``).
 """
 
 from __future__ import annotations
@@ -243,6 +252,44 @@ def _lstm_pass(step_in, wh, hidden, t_len, reverse, bf16):
     return outs
 
 
+def _stack_core_plain(w: dict, m: int, p1_at, p3_at, t_len: int,
+                      bf16: bool) -> torch.Tensor:
+    """Bi-LSTM stack + heads of model ``m`` for n windows. ``p1_at(t)``
+    gives the layer-1 pre-activations [n, 128] of step t (bias included),
+    ``p3_at(t)`` the layer-3 signal parts [n, 1024], both f32. Returns the
+    logits [n, 6]."""
+    def proj(inputs, wi, b):
+        return lambda t: inputs[t] @ wi + b
+
+    def pair(f, b):
+        return [torch.cat([x, y], dim=1) for x, y in zip(f, b)]
+
+    l1 = pair(*[_lstm_pass(lambda t, d=d: p1_at(t)[:, 64 * d : 64 * d + 64],
+                           w["wh1"][m, d], H1, t_len, d == 1, bf16)
+                for d in (0, 1)])
+    l2 = pair(*[_lstm_pass(proj(l1, w["wi2"][m, d], w["b2"][m, d]),
+                           w["wh2"][m, d], H2, t_len, d == 1, bf16)
+                for d in (0, 1)])
+    l3 = []
+    for d in (0, 1):
+        pm = proj(l2, w["wi3"][m, d], w["b3"][m, d])
+        l3.append(_lstm_pass(
+            lambda t, d=d, pm=pm: pm(t) + p3_at(t)[:, 512 * d : 512 * d + 512],
+            w["wh3"][m, d], H3, t_len, d == 1, bf16))
+    l3 = pair(*l3)
+    l4 = pair(*[_lstm_pass(proj(l3, w["wi4"][m, d], w["b4"][m, d]),
+                           w["wh4"][m, d], H4, t_len, d == 1, bf16)
+                for d in (0, 1)])
+    acc = l4[0].new_zeros(l4[0].shape[0], 16)
+    for t in range(t_len):
+        h = _rnd(torch.relu(l4[t] @ w["d1w"][m] + w["d1b"][m]), bf16)
+        h = _rnd(torch.relu(h @ w["d2w"][m] + w["d2b"][m]), bf16)
+        mo = _rnd(torch.relu(h @ w["mow"][m] + w["mob"][m]), bf16)
+        acc = acc + mo @ w["fw"][m, t]
+    feature = _rnd(torch.relu(acc + w["fb"][m]), bf16)
+    return feature @ w["fow"][m] + w["fob"][m]
+
+
 def stack_heads_plain(ws: dict, p1: torch.Tensor, p3: torch.Tensor, *,
                       t_len: int, w_valid: int, n_windows: int,
                       want_probs: bool, bf16: bool = True):
@@ -257,42 +304,42 @@ def stack_heads_plain(ws: dict, p1: torch.Tensor, p3: torch.Tensor, *,
         return logits, probs
     wv = w_valid
     for m in range(n_models):
-        def rows(arr, t, lo, hi):
-            return arr[m, t : t + wv, lo:hi]
-
-        def proj(inputs, wi, b):
-            return lambda t: inputs[t] @ wi + b
-
-        def pair(f, b):
-            return [torch.cat([x, y], dim=1) for x, y in zip(f, b)]
-
-        l1 = pair(*[_lstm_pass(lambda t, d=d: rows(p1, t, 64 * d, 64 * d + 64),
-                               w["wh1"][m, d], H1, t_len, d == 1, bf16)
-                    for d in (0, 1)])
-        l2 = pair(*[_lstm_pass(proj(l1, w["wi2"][m, d], w["b2"][m, d]),
-                               w["wh2"][m, d], H2, t_len, d == 1, bf16)
-                    for d in (0, 1)])
-        l3 = []
-        for d in (0, 1):
-            pm = proj(l2, w["wi3"][m, d], w["b3"][m, d])
-            l3.append(_lstm_pass(
-                lambda t, d=d, pm=pm: pm(t) + rows(p3, t, 512 * d, 512 * d + 512),
-                w["wh3"][m, d], H3, t_len, d == 1, bf16))
-        l3 = pair(*l3)
-        l4 = pair(*[_lstm_pass(proj(l3, w["wi4"][m, d], w["b4"][m, d]),
-                               w["wh4"][m, d], H4, t_len, d == 1, bf16)
-                    for d in (0, 1)])
-        acc = p1.new_zeros(wv, 16)
-        for t in range(t_len):
-            h = _rnd(torch.relu(l4[t] @ w["d1w"][m] + w["d1b"][m]), bf16)
-            h = _rnd(torch.relu(h @ w["d2w"][m] + w["d2b"][m]), bf16)
-            mo = _rnd(torch.relu(h @ w["mow"][m] + w["mob"][m]), bf16)
-            acc = acc + mo @ w["fw"][m, t]
-        feature = _rnd(torch.relu(acc + w["fb"][m]), bf16)
-        lg = feature @ w["fow"][m] + w["fob"][m]
+        lg = _stack_core_plain(w, m, lambda t, m=m: p1[m, t : t + wv],
+                               lambda t, m=m: p3[m, t : t + wv], t_len, bf16)
         logits[m, :wv] = lg
         if want_probs:
             probs[m, :wv] = max_prob(lg)
+    return logits, probs
+
+
+def stack_windows_plain(ws: dict, feats: torch.Tensor, sig_outs: torch.Tensor,
+                        *, t_len: int, want_probs: bool, bf16: bool):
+    """Plain version of ``stack_windows``: pre-gathered windows, feats
+    [B, T, 6] shared by all models and sig_outs [M, B, T, 64] per model.
+    The layer-1 and layer-3-signal projections run per (window, t), then the
+    stack core of ``stack_heads_plain``. With ``bf16`` the inputs and
+    matrices are rounded where the kernel rounds them (the CPU wrapper's
+    path, and the kernel's yardstick on the card); without, it is the f32
+    model. Returns (logits [M, B, 6], probs [M, B] or None)."""
+    w = _plain_weights(ws, bf16)
+    n_models, n_win = sig_outs.shape[0], sig_outs.shape[1]
+    if w["wh1"].shape[0] != n_models:
+        raise ValueError(f"{w['wh1'].shape[0]} models of weights for "
+                         f"{n_models} models of sig_outs")
+    f = _rnd(feats.to(torch.float32), bf16)
+    logits = f.new_zeros(n_models, n_win, NB_MAX)
+    probs = f.new_zeros(n_models, n_win) if want_probs else None
+    if n_win == 0:
+        return logits, probs
+    for m in range(n_models):
+        s = _rnd(sig_outs[m].to(torch.float32), bf16)
+        p1 = f @ w["wi1"][m] + w["b1"][m]              # [B, T, 128]
+        p3 = s @ w["wi3s"][m]                          # [B, T, 1024]
+        lg = _stack_core_plain(w, m, lambda t, p1=p1: p1[:, t],
+                               lambda t, p3=p3: p3[:, t], t_len, bf16)
+        logits[m] = lg
+        if want_probs:
+            probs[m] = max_prob(lg)
     return logits, probs
 
 
@@ -319,9 +366,11 @@ BASE_ROWS = build.Kernel("base_rows", "reviser_stack",
                          "nanoreviser_tpu/ops/reviser_kernel.py:283")
 STACK_HEADS = build.Kernel("stack_heads", "reviser_stack",
                            "nanoreviser_tpu/ops/reviser_kernel.py:283")
+STACK_WINDOWS = build.Kernel("stack_windows", "reviser_stack",
+                             "nanoreviser_tpu/ops/reviser_kernel.py:251")
 
 
-def _weight_ptrs(ws: dict, order, t_len: int):
+def _weight_ptrs(ws: dict, order, t_len: int, n_models: int = 2):
     shapes = stack_shapes(t_len)
     ptrs = []
     for k in order:
@@ -330,8 +379,8 @@ def _weight_ptrs(ws: dict, order, t_len: int):
         if v.dtype != want or tuple(v.shape[1:]) != shapes[k] or not v.is_contiguous():
             raise ValueError(f"weight {k}: {v.dtype} {tuple(v.shape)}, want "
                              f"{want} [M, {shapes[k]}] contiguous")
-        if v.shape[0] != 2:
-            raise ValueError(f"weight {k}: the kernels take exactly 2 models")
+        if v.shape[0] != n_models:
+            raise ValueError(f"weight {k}: {v.shape[0]} models, want {n_models}")
         ptrs.append(v.data_ptr())
     return ptrs
 
@@ -420,3 +469,111 @@ def stack_logits_full(ws: dict, sig: torch.Tensor, feats: torch.Tensor, *,
     p1, p3 = base_rows(ws, sig, feats, n_p, t_len=t_len)
     return stack_heads(ws, p1, p3, t_len=t_len, w_valid=w_valid,
                        n_windows=n_windows, want_probs=want_probs)
+
+
+# --------------------------------------------- the pre-gathered-window entry
+
+# the argument order of nr_stack_windows: the per-(window, t) projections'
+# weights, then the stack core's
+WINDOWS_ORDER = ("wi1", "b1", "wi3s") + STACK_ORDER
+
+
+def stack_logits_multi(ws: dict, feats: torch.Tensor, sig_outs: torch.Tensor,
+                       *, t_len: int, want_probs: bool = False):
+    """Logits [M, B, 6] f32 of M = 1 or 2 models for pre-gathered windows:
+    ``feats`` f32 [B, T, 6] (shared by the models) and ``sig_outs`` f32
+    [M, B, T, 64] (each model's conv-branch output). With ``want_probs``
+    returns (logits, max prob [M, B]). Counterpart of the TPU entry
+    ``stack_logits_multi`` (``nanoreviser_tpu/ops/reviser_kernel.py:611``);
+    any B. CUDA tensors launch ``stack_windows`` (one launch for all
+    models); CPU tensors take the bf16 plain version."""
+    if feats.device.type == "cpu":
+        logits, probs = stack_windows_plain(ws, feats, sig_outs, t_len=t_len,
+                                            want_probs=want_probs, bf16=True)
+        return (logits, probs) if want_probs else logits
+    build.require_cuda(feats, sig_outs)
+    if sig_outs.dim() != 4 or sig_outs.shape[0] not in (1, 2):
+        raise ValueError(f"sig_outs must be [M, B, T, 64] with M 1 or 2, got "
+                         f"{tuple(sig_outs.shape)}")
+    n_models, n_win = sig_outs.shape[0], sig_outs.shape[1]
+    for name, arr, shape in (("feats", feats, (n_win, t_len, 6)),
+                             ("sig_outs", sig_outs, (n_models, n_win, t_len, 64))):
+        if (arr.dtype != torch.float32 or tuple(arr.shape) != shape
+                or not arr.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 {list(shape)}, got "
+                             f"{arr.dtype} {tuple(arr.shape)}")
+    dev = feats.device
+    logits = torch.empty((n_models, n_win, NB_MAX), dtype=torch.float32, device=dev)
+    probs = (torch.empty((n_models, n_win), dtype=torch.float32, device=dev)
+             if want_probs else None)
+    if n_win:
+        ptrs = _weight_ptrs(ws, WINDOWS_ORDER, t_len, n_models)
+        STACK_WINDOWS.launch(
+            "nr_stack_windows",
+            build.ptr_array(ptrs), build.c_int(n_models), build.c_ptr(feats),
+            build.c_ptr(sig_outs), build.c_int(n_win), build.c_int(t_len),
+            build.c_ptr(logits),
+            build.c_ptr(probs) if probs is not None else build.c_void_p(0),
+            build.stream_of(dev))
+    return (logits, probs) if want_probs else logits
+
+
+def stack_logits_single(w: dict, feats: torch.Tensor, sig_out: torch.Tensor,
+                        *, t_len: int, want_probs: bool = False):
+    """Single-model wrapper (counterpart of the TPU entry
+    ``stack_logits_pallas``, ``nanoreviser_tpu/ops/reviser_kernel.py:749``):
+    ``w`` holds one model's packed weights without the model axis; feats
+    [B, T, 6], sig_out [B, T, 64] -> logits [B, 6] (+ max prob [B])."""
+    ws = {k: v[None] for k, v in w.items()}
+    out = stack_logits_multi(ws, feats, sig_out[None], t_len=t_len,
+                             want_probs=want_probs)
+    if want_probs:
+        return out[0][0], out[1][0]
+    return out[0]
+
+
+def stack_logits_reference(fused: dict, feats, sig_out) -> torch.Tensor:
+    """f32 reference of the stack for kernel testing: ``fused`` is a folded
+    parameter tree of tensors (``models.fused.fold_inference_params`` +
+    ``params_from_numpy``); delegates to ``models.fused.lstm_stack_apply``."""
+    from ..models.fused import lstm_stack_apply
+
+    return lstm_stack_apply(fused, torch.as_tensor(feats), torch.as_tensor(sig_out))
+
+
+def executed_mac_counts(t_len: int) -> dict:
+    """Algorithmic MAC counts per model for the stack, from the architecture
+    dims (copy of ``nanoreviser_tpu/ops/reviser_kernel.py:774``, the single
+    source for the kernels' bounds).
+
+    "per_base": the work that depends on one base row only (conv branch,
+    layer-1 projection of the features, layer-3 projection of the conv
+    output); "per_window": the work per window once those are hoisted per
+    base row (what ``stack_heads`` runs); "naive_per_window": the hoisted
+    terms recomputed every (window, t); "per_window_pregathered": what the
+    pre-gathered-window path runs per window (``stack_windows``), where only
+    the projections of the features and conv outputs are per (window, t) --
+    the conv branch itself runs outside the kernel.
+    """
+    q = 50                                   # window samples (conv length)
+    conv = 1 * 8 * 3 * q + 8 * 8 * 3 * q + 8 * q * 64   # conv1, conv2, sig_dense
+    l1_proj = 2 * 6 * (4 * H1)                          # feats -> L1 gates
+    l3_sig = 2 * H4 * (4 * H3)                          # sig_dense -> L3 gates
+    per_base = conv + l1_proj + l3_sig
+    # once per (window, t): recurrent matmuls ...
+    rec = 2 * (H1 * 4 * H1 + H2 * 4 * H2 + H3 * 4 * H3 + H4 * 4 * H4)
+    # ... window-dependent input projections ...
+    proj_t = 2 * (2 * H1 * 4 * H2      # L1 out (2 dirs) -> L2 gates
+                  + 2 * H2 * 4 * H3    # L2 out -> L3 gates (read part)
+                  + 2 * H3 * 4 * H4)   # L3 out -> L4 gates
+    # ... and the per-t heads (dense1/dense2/main_out/feature accumulation)
+    heads_t = 2 * H4 * 128 + 128 * 32 + 32 * NB_MAX + NB_MAX * 16
+    per_window_per_t = rec + proj_t + heads_t
+    final = 16 * NB_MAX                       # final_out, once per window
+    per_window = per_window_per_t * t_len + final
+    return {
+        "per_base": per_base,
+        "per_window": per_window,
+        "naive_per_window": (per_window_per_t + per_base) * t_len + final,
+        "per_window_pregathered": per_window + (l1_proj + l3_sig) * t_len,
+    }

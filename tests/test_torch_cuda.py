@@ -4,9 +4,11 @@ These tests need an NVIDIA GPU with nvcc and skip without one. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-They hold the window gather bit-exact against its plain version, the two
-reviser-stack kernels against the bf16 plain version (max |dlogit| <= 0.05,
-argmax agreement >= 0.995), and the engine's labels on the card against the
+They hold the window gather bit-exact against its plain version, the three
+reviser-stack kernels against the bf16 plain versions (max |dlogit| <= 0.05,
+argmax agreement >= 0.995; the pre-gathered-window kernel also for one model,
+equal to model 1 of two, and for batches that end inside a block of 16
+windows), and the engine's labels on the card against the
 CPU engine's f32 labels (agreement >= 0.98), at small sizes; and they check
 that the engine's device step never makes the host wait for the card.
 """
@@ -84,6 +86,47 @@ def test_stack_kernels_match_bf16_plain():
         assert float(agree) >= 0.995
     assert float((pr[:, :w_valid] - pp[:, :w_valid]).abs().max()) <= 0.05
     assert not lg[:, w_valid:].any() and not pr[:, w_valid:].any()
+
+
+def _window_inputs(dev, n, seed):
+    rng = np.random.default_rng(seed)
+    feats = torch.tensor(rng.normal(0.5, 0.3, (n, 11, 6)), dtype=torch.float32,
+                         device=dev)
+    sig = torch.tensor(rng.normal(0, 1, (2, n, 11, 64)), dtype=torch.float32,
+                       device=dev)
+    return feats, sig
+
+
+def test_windows_kernel_matches_bf16_plain():
+    dev = _card()
+    ws = rk.weights_to_device(_weights(7), dev)
+    n = 700                                       # not a multiple of 16
+    feats, sig = _window_inputs(dev, n, 2)
+    lg, pr = rk.stack_logits_multi(ws, feats, sig, t_len=11, want_probs=True)
+    lp, pp = rk.stack_windows_plain(ws, feats, sig, t_len=11, want_probs=True,
+                                    bf16=True)
+    torch.cuda.synchronize()
+    for m, nc in enumerate((6, 5)):
+        assert float((lg[m, :, :nc] - lp[m, :, :nc]).abs().max()) <= 0.05
+        agree = (lg[m].argmax(-1) == lp[m].argmax(-1)).float().mean()
+        assert float(agree) >= 0.995
+    assert float((pr - pp).abs().max()) <= 0.05
+    assert float(lg[0].std(0).min()) > 1e-3
+
+
+def test_windows_kernel_single_model_and_ragged_batches():
+    dev = _card()
+    ws = rk.weights_to_device(_weights(8), dev)
+    for n in (5, 16, 33):                         # below, at and past a block
+        feats, sig = _window_inputs(dev, n, n)
+        both = rk.stack_logits_multi(ws, feats, sig, t_len=11)
+        one = rk.stack_logits_single({k: v[0] for k, v in ws.items()}, feats,
+                                     sig[0], t_len=11)
+        plain, _ = rk.stack_windows_plain(ws, feats, sig, t_len=11,
+                                          want_probs=False, bf16=True)
+        torch.cuda.synchronize()
+        assert torch.equal(one, both[0])
+        assert float((both[:, :, :5] - plain[:, :, :5]).abs().max()) <= 0.05
 
 
 def _engine_inputs(tmp_path):
