@@ -12,11 +12,13 @@ Phases, each printing one JSON line:
              reads, decodes it on the card, and holds the window-gather
              kernel bit-exact against its plain version on the card and on
              the CPU; times kernel and plain version with CUDA events.
-4. stack   - on the same batch, holds base_rows and stack_heads against the
-             bf16 plain version (argmax agreement >= 0.995, max |dlogit| <=
-             0.05) and against the f32 plain version with TF32 off
-             (agreement >= 0.99 over windows whose f32 top-2 margin exceeds
-             1e-3, atol 0.15); times kernels and plain versions.
+4. stack   - on the same batch, holds stack_full against the bf16 plain
+             chain (argmax agreement >= 0.995, max |dlogit| <= 0.05) and
+             against the f32 plain chain with TF32 off (agreement >= 0.99
+             over windows whose f32 top-2 margin exceeds 1e-3, atol 0.15);
+             times kernel and plain chain; reports the bound, the weight
+             bytes the kernel's schedule fetches from L2 and their rate,
+             and ptxas's registers and spills.
 5. windows - the pre-gathered-window path on the same synthetic reads:
              windowed host prep (prep_read_numpy) of reads until there are
              >= 16,384 windows, then on the card device_preprocess_batch,
@@ -27,16 +29,18 @@ Phases, each printing one JSON line:
              agreement >= 0.995) and the f32 model with TF32 off (atol 0.15,
              agreement >= 0.99 over windows whose f32 top-2 margin exceeds
              1e-3), the single-model launch equal to model 1 of the pair,
-             and each read's model-1 labels against the main path's (B1 +
-             B2) labels (agreement >= 0.98); merges each read and checks the
-             sequences' plausibility; times kernel and plain version.
+             and each read's model-1 labels against the main path's
+             (window_gather + stack_full) labels (agreement >= 0.98);
+             merges each read and checks the sequences' plausibility;
+             times kernel and plain version.
 6. e2e     - writes 40 synthetic fast5 reads of ~10k bases, random weights
              (the port's init + save_keras_weights), and runs the CLI in model
              mode for fastq and fasta: one output file per read, no failed
-             read, every kernel launched. Launch counts are zeroed just
-             before and read just after. A few reads are also revised with
-             emit="labels" on the card and on the CPU (plain f32 path) and
-             must agree.
+             read, exactly one window_gather and one stack_full launch per
+             batch (engine device step) and no other. Launch counts are
+             zeroed just before and read just after. A few reads are also
+             revised with emit="labels" on the card and on the CPU (plain
+             f32 path) and must agree.
 
 Then the kernel table line, nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
@@ -130,7 +134,7 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from nanoreviser_torch.ops import build
 
     t0 = time.time()
@@ -140,6 +144,7 @@ def phase_build() -> None:
              for src, log in logs.items()}
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "nvcc": build.nvcc_path(), "ptxas": ptxas})
+    return logs
 
 
 def phase_gather(tmp: str, weights):
@@ -237,7 +242,19 @@ def _f32_weights(weights, t_len: int, device) -> dict:
     return rk.weights_to_device(rk.stack_models(per_model), device, torch.float32)
 
 
-def phase_stack(eng, dec, sig, tier, w_valid, weights):
+def ptxas_of(log: str, kernel: str) -> list:
+    """ptxas's register and spill lines for the entry functions whose
+    (mangled) name contains ``kernel``."""
+    out, cur = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln
+        elif kernel in cur and ("registers" in ln or "spill" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def phase_stack(eng, dec, sig, tier, w_valid, weights, build_logs):
     import torch
 
     from nanoreviser_torch.ops import reviser_kernel as rk
@@ -257,28 +274,22 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights):
         return max(float((a[m, v, :nc] - b[m, v, :nc]).abs().max())
                    for m, nc in enumerate(eng.n_classes))
 
-    p1, p3 = rk.base_rows(ws, sig, feats, n_p, t_len=t)
-    q1, q3 = rk.base_rows_plain(ws, sig, feats, n_p, bf16=True)
-    logits, probs = rk.stack_heads(ws, p1, p3, t_len=t, w_valid=w_valid,
-                                   n_windows=n_win, want_probs=True)
-    # the same p1/p3 through the plain stack isolates stack_heads
-    lp, pp = rk.stack_heads_plain(ws, p1, p3, t_len=t, w_valid=w_valid,
-                                  n_windows=n_win, want_probs=True)
+    logits, probs = rk.stack_logits_full(ws, sig, feats, t_len=t,
+                                         w_valid=w_valid, n_windows=n_win,
+                                         want_probs=True)
     # the whole plain bf16 chain, for the B2 bars
-    lpc, _ = rk.stack_heads_plain(ws, q1, q3, t_len=t, w_valid=w_valid,
-                                  n_windows=n_win, want_probs=True)
+    lp, pp = rk.stack_logits_plain(ws, sig, feats, t_len=t, w_valid=w_valid,
+                                   n_windows=n_win, want_probs=True, bf16=True)
     torch.cuda.synchronize()
-    base_err = max(float((p1 - q1).abs().max()), float((p3 - q3).abs().max()))
-    check(base_err <= 0.05, f"base_rows vs plain: max |d| {base_err}")
-    for name, x in (("logits", logits), ("probs", probs), ("p1", p1), ("p3", p3)):
+    for name, x in (("logits", logits), ("probs", probs)):
         check(bool(torch.isfinite(x).all()), f"{name} has non-finite values")
-    heads_err = dmax(logits, lp)
-    heads_perr = float((probs[:, v] - pp[:, v]).abs().max())
-    b2_err = dmax(logits, lpc)
-    agree_bf16 = [_agreement(logits[m, v], lpc[m, v])[0] for m in range(2)]
-    check(heads_err <= 0.05 and b2_err <= 0.05,
-          f"stack vs bf16 plain: max |dlogit| {heads_err} / {b2_err}")
-    check(min(agree_bf16) >= 0.995, f"stack vs bf16 plain agreement {agree_bf16}")
+    check(not logits[:, w_valid:].any() and not probs[:, w_valid:].any(),
+          "stack_full wrote windows >= w_valid")
+    b2_err = dmax(logits, lp)
+    b2_perr = float((probs[:, v] - pp[:, v]).abs().max())
+    agree_bf16 = [_agreement(logits[m, v], lp[m, v])[0] for m in range(2)]
+    check(b2_err <= 0.05, f"stack_full vs bf16 plain: max |dlogit| {b2_err}")
+    check(min(agree_bf16) >= 0.995, f"stack_full vs bf16 plain agreement {agree_bf16}")
 
     win_f32 = window_gather_plain(dec.sig, dec.pos0, dec.vlen, dec.read_id,
                                   dec.shift, dec.scale, w_valid + t,
@@ -295,63 +306,48 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights):
         a, ties = _agreement(logits[m, v, :nc], lf[m, v, :nc], lf[m, v, :nc], 1e-3)
         agree_f32.append(a)
         near_ties.append(ties)
-    check(min(agree_f32) >= 0.99, f"stack vs f32 plain agreement {agree_f32}")
-    check(f32_err <= 0.15, f"stack vs f32 plain max |dlogit| {f32_err}")
+    check(min(agree_f32) >= 0.99, f"stack_full vs f32 plain agreement {agree_f32}")
+    check(f32_err <= 0.15, f"stack_full vs f32 plain max |dlogit| {f32_err}")
     classes = [torch.bincount(logits[m, v].argmax(-1), minlength=6).tolist()
                for m in range(2)]
     check(sum(c > 0 for c in classes[0]) >= 2, f"model1 labels degenerate {classes[0]}")
+    del lf, pf, win_f32
 
-    base_ms = cuda_ms(lambda: rk.base_rows(ws, sig, feats, n_p, t_len=t), reps=10)
-    base_plain_ms = cuda_ms(
-        lambda: rk.base_rows_plain(ws, sig, feats, n_p, bf16=True), reps=3)
-    heads_ms = cuda_ms(lambda: rk.stack_heads(
-        ws, p1, p3, t_len=t, w_valid=w_valid, n_windows=n_win,
-        want_probs=True), reps=3)
-    heads_plain_ms = cuda_ms(lambda: rk.stack_heads_plain(
-        ws, p1, p3, t_len=t, w_valid=w_valid, n_windows=n_win,
-        want_probs=True), reps=2)
+    ms = cuda_ms(lambda: rk.stack_logits_full(
+        ws, sig, feats, t_len=t, w_valid=w_valid, n_windows=n_win,
+        want_probs=True), reps=5)
+    plain_ms = cuda_ms(lambda: rk.stack_logits_plain(
+        ws, sig, feats, t_len=t, w_valid=w_valid, n_windows=n_win,
+        want_probs=True, bf16=True), reps=2)
 
-    # base_rows runs the conv branch in dense form: one product per matrix
-    # of the packed shapes; stack_heads the executed per-window MACs
-    shapes = rk.stack_shapes(t)
-    per_row = sum(math.prod(shapes[k])
-                  for k in ("cw1", "cw2", "cc", "ce", "wi1", "wi3s"))
-    base_ops = 2 * 2 * n_p * per_row
-    w_bytes = sum(x.numel() * x.element_size() for x in ws.values())
-    base_bytes = (n_p * (sig.shape[1] * 2 + 6 * 4) + w_bytes
-                  + (p1.numel() + p3.numel()) * 4)
-    macs_window = rk.executed_mac_counts(t)["per_window"]
-    heads_ops = 2 * 2 * w_valid * macs_window
-    heads_bytes = ((p1.numel() + p3.numel()) * 4 + w_bytes
-                   + (logits.numel() + probs.numel()) * 4)
-    bb, bb_by = bound(base_ops, base_bytes)
-    hb, hb_by = bound(heads_ops, heads_bytes)
+    # the bound: the JAX package's algorithmic count (conv branch and both
+    # projections once per row, the rest per window), not this design's
+    macs = rk.executed_mac_counts(t)
+    ops = 2 * 2 * (n_p * macs["per_base"] + w_valid * macs["per_window"])
+    w_bytes = sum(ws[k].numel() * ws[k].element_size() for k in rk.FULL_ORDER)
+    nbytes = (n_p * (sig.shape[1] * 2 + 6 * 4) + w_bytes
+              + (logits.numel() + probs.numel()) * 4)
+    bms, bby = bound(ops, nbytes)
+    blocks = -(-w_valid // 16)
+    fetch = 2 * blocks * rk.stack_full_fetch_bytes(t)
     emit({"phase": "stack", "windows": w_valid, "rows": n_p,
-          "base_rows_max_abs_err": base_err,
-          "stack_heads_max_abs_dlogit": heads_err,
-          "stack_heads_max_abs_dprob": heads_perr,
-          "b2_vs_bf16_plain": {"max_abs_dlogit": b2_err, "argmax_agreement": agree_bf16},
+          "b2_vs_bf16_plain": {"max_abs_dlogit": b2_err, "max_abs_dprob": b2_perr,
+                               "argmax_agreement": agree_bf16},
           "b2_vs_f32_plain": {"max_abs_dlogit": f32_err, "argmax_agreement": agree_f32,
                               "near_ties_margin_1e-3": near_ties},
           "label_counts": classes,
-          "launches_per_batch": {"window_gather": 1, "base_rows": 1, "stack_heads": 1},
-          "base_rows_ms": base_ms, "base_rows_plain_ms": base_plain_ms,
-          "stack_heads_ms": heads_ms, "stack_heads_plain_ms": heads_plain_ms,
-          "base_rows_bound_ms": bb, "stack_heads_bound_ms": hb,
-          "macs_per_window_per_model": macs_window})
-    rows = [
-        {"name": "base_rows", "route": "cuda",
-         "source": "nanoreviser_torch/csrc/reviser_stack.cu",
-         "replaces": rk.BASE_ROWS.replaces, "max_abs_err": base_err,
-         "ms": base_ms, "plain_ms": base_plain_ms, "bound_ms": bb,
-         "bound_by": bb_by, "library_ms": None},
-        {"name": "stack_heads", "route": "cuda",
-         "source": "nanoreviser_torch/csrc/reviser_stack.cu",
-         "replaces": rk.STACK_HEADS.replaces, "max_abs_err": heads_err,
-         "ms": heads_ms, "plain_ms": heads_plain_ms, "bound_ms": hb,
-         "bound_by": hb_by, "library_ms": None},
-    ]
-    return rows
+          "launches_per_batch": {"window_gather": 1, "stack_full": 1},
+          "stack_full_ms": ms, "stack_full_plain_ms": plain_ms,
+          "stack_full_bound_ms": bms, "bound_by": bby, "flop": ops,
+          "bytes": nbytes, "blocks": blocks * 2,
+          "l2_weight_fetch_bytes": fetch,
+          "l2_weight_fetch_tb_per_s": fetch / (ms * 1e-3) / 1e12,
+          "ptxas": ptxas_of(build_logs.get("reviser_stack", ""), "stack_full")})
+    return [{"name": "stack_full", "route": "cuda",
+             "source": "nanoreviser_torch/csrc/reviser_stack.cu",
+             "replaces": rk.STACK_FULL.replaces, "max_abs_err": b2_err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+             "bound_by": bby, "library_ms": None}]
 
 
 def phase_windows(weights, fast5_dir: str, names: list):
@@ -405,7 +401,7 @@ def phase_windows(weights, fast5_dir: str, names: list):
         "idx": idx,
     }
     d = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-    kernels = (WINDOW_GATHER, rk.BASE_ROWS, rk.STACK_HEADS, rk.STACK_WINDOWS)
+    kernels = (WINDOW_GATHER, rk.STACK_FULL, rk.STACK_WINDOWS)
 
     # the pre-gathered-window path, once, with the launch counts zeroed
     for k in kernels:
@@ -452,7 +448,7 @@ def phase_windows(weights, fast5_dir: str, names: list):
     check(f32_err <= 0.15, f"stack_windows vs f32 model max |dlogit| {f32_err}")
     check(min(agree_f32) >= 0.99, f"stack_windows vs f32 model agreement {agree_f32}")
 
-    # per read: model-1 labels against the main path's (B1 + B2), then merge
+    # per read: model-1 labels against the main path's, then merge
     y1 = logits[0].argmax(-1).cpu().numpy()
     y2 = logits[1, :, : n_classes[1]].argmax(-1).cpu().numpy()
     main = {n: y for n, _, y, _ in StreamingReviser(
@@ -504,11 +500,20 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
     from nanoreviser_torch.cli.reviser import main as cli_main
     from nanoreviser_torch.infer import StreamingReviser
     from nanoreviser_torch.io import get_read_data
-    from nanoreviser_torch.ops.reviser_kernel import BASE_ROWS, STACK_HEADS
+    from nanoreviser_torch.ops.reviser_kernel import STACK_FULL, STACK_WINDOWS
     from nanoreviser_torch.ops.window_gather import WINDOW_GATHER
 
-    kernels = (WINDOW_GATHER, BASE_ROWS, STACK_HEADS)
+    kernels = (WINDOW_GATHER, STACK_FULL, STACK_WINDOWS)
     n_bases = sum(get_read_data(os.path.join(fast5_dir, n)).n_bases for n in names)
+    # count the engine's device steps (batches) beside the launches
+    steps = [0]
+    device_step = StreamingReviser._device_step
+
+    def counted_step(self, *args):
+        steps[0] += 1
+        return device_step(self, *args)
+
+    StreamingReviser._device_step = counted_step
     for k in kernels:
         k.launches = 0
     runs = {}
@@ -540,7 +545,11 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
         runs[fmt] = {"seconds": secs, "reads_per_s": len(names) / secs,
                      "bases_per_s": n_bases / secs}
     launches = {k.name: k.launches for k in kernels}
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    StreamingReviser._device_step = device_step
+    check(steps[0] > 0 and launches == {"window_gather": steps[0],
+                                        "stack_full": steps[0],
+                                        "stack_windows": 0},
+          f"main path launches {launches} for {steps[0]} batches")
 
     # model1 labels on the card (bf16 kernels) vs the CPU engine's plain f32
     # path on three reads, one batch each, all three in flight at once;
@@ -556,7 +565,7 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
     agree = min(per_read)
     check(agree >= 0.98, f"card vs CPU f32 label agreement per read {per_read}")
     emit({"phase": "e2e", "reads": len(names), "bases": n_bases,
-          "runs": runs, "launches": launches, "failed": 0,
+          "runs": runs, "batches": steps[0], "launches": launches, "failed": 0,
           "labels_card_vs_cpu_f32_agreement": agree})
     return launches
 
@@ -567,11 +576,11 @@ def main() -> int:
     import nanoreviser_torch  # noqa: F401 — fail before any output without it
 
     info = phase_device()
-    phase_build()
+    logs = phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         weights = make_weights(tmp)
         eng, dec, sig, tier, w_valid, fast5_dir, names, grow = phase_gather(tmp, weights)
-        srows = phase_stack(eng, dec, sig, tier, w_valid, weights)
+        srows = phase_stack(eng, dec, sig, tier, w_valid, weights, logs)
         del eng, dec, sig
         torch.cuda.empty_cache()
         wrow = phase_windows(weights, fast5_dir, names)

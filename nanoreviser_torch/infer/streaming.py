@@ -6,7 +6,7 @@ tiers, uploaded as one contiguous buffer per batch, and revised by one
 device step per batch:
 
     decode_wire (torch ops)  -> window gather kernel (ops.window_gather)
-    -> reviser stack kernels (ops.reviser_kernel: base_rows, stack_heads)
+    -> reviser stack kernel (ops.reviser_kernel: stack_full)
     -> argmax packed as y1*8 + y2 (+ phred qualities of the max prob)
 
 then merged with the original bases on the host (``infer.merge``).
@@ -41,6 +41,7 @@ from ..io.fast5 import ReadData
 from ..models import load_keras_weights
 from ..models.fused import fold_inference_params
 from ..ops.reviser_kernel import (
+    kernel_weights,
     pack_stack_weights,
     stack_logits_full,
     stack_logits_plain,
@@ -208,9 +209,10 @@ class StreamingReviser:
             pack_stack_weights(fold_inference_params(p1), win1),
             pack_stack_weights(fold_inference_params(p2), win2),
         ])
-        # the kernels take bf16 matrices; the CPU path is the f32 model
-        self._ws = weights_to_device(
-            ws, self.device, torch.bfloat16 if self._cuda else torch.float32)
+        # the kernel takes bf16 matrices, its products packed in fragment
+        # order once here; the CPU path is the f32 model
+        self._ws = (kernel_weights(ws, self.device) if self._cuda
+                    else weights_to_device(ws, self.device, torch.float32))
         self._wire_tables = wire_tables(self.device)
         self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
                              else None)

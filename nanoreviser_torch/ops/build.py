@@ -77,7 +77,8 @@ def _start_build(source: str):
 
 def _finish_build(source: str, out: Path, pending) -> str:
     if pending is None:
-        return ""
+        log = out.with_suffix(".log")
+        return log.read_text() if log.exists() else ""
     proc, tmp = pending
     log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -89,7 +90,8 @@ def _finish_build(source: str, out: Path, pending) -> str:
 
 def build_all(sources=SOURCES) -> dict:
     """Compile every source at once (one nvcc each, started together).
-    Returns {source: nvcc/ptxas log} ('' for a library already built)."""
+    Returns {source: nvcc/ptxas log} (the saved log for a library already
+    built)."""
     started = {s: _start_build(s) for s in sources}
     return {s: _finish_build(s, out, pend) for s, (out, pend) in started.items()}
 

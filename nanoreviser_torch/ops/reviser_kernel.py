@@ -1,28 +1,34 @@
 """The reviser stack: weight packing, plain versions, and the entries to the
-three CUDA kernels of ``csrc/reviser_stack.cu``.
+two CUDA kernels of ``csrc/reviser_stack.cu``.
 
-Replaces the TPU kernel ``_kernel_full`` (``nanoreviser_tpu/ops/
-reviser_kernel.py:283``, entry ``stack_logits_full`` ``:678``). Per base row
-w of a batch, window w covers rows w..w+T-1. The work splits in two:
+``stack_logits_full`` replaces the TPU kernel ``_kernel_full``
+(``nanoreviser_tpu/ops/reviser_kernel.py:283``, entry ``stack_logits_full``
+``:678``) with one kernel, ``stack_full``. Per base row w of a batch,
+window w covers rows w..w+T-1. The function, in two plain halves:
 
-* ``base_rows`` (once per base row and model): the conv branch in dense
-  form, ``relu(x@W1+c1) -> relu(.@W2+c2) -> .@C + x@E + cb`` (50 -> 400 ->
-  400 -> 64), the layer-1 input projections of both directions (6 -> 2x64,
-  bias included) and the layer-3 signal projections (64 -> 2x512). Outputs
-  ``p1`` [2, N, 128] and ``p3`` [2, N, 1024] in f32.
-* ``stack_heads`` (per window and model): 4 Bi-LSTM layers (H 16/64/128/64,
-  Keras hard_sigmoid gates), the per-t relu heads 128 -> 128 -> 32 -> 6,
-  ``feature = relu(sum_t main_t @ fw[t] + fb)``, the logits
+* ``base_rows_plain`` (once per base row and model): the conv branch in
+  dense form, ``relu(x@W1+c1) -> relu(.@W2+c2) -> .@C + x@E + cb`` (50 ->
+  400 -> 400 -> 64), the layer-1 input projections of both directions (6 ->
+  2x64, bias included) and the layer-3 signal projections (64 -> 2x512).
+  Outputs ``p1`` [2, N, 128] and ``p3`` [2, N, 1024] in f32.
+* ``stack_heads_plain`` (per window and model): 4 Bi-LSTM layers (H
+  16/64/128/64, Keras hard_sigmoid gates), the per-t relu heads 128 -> 128
+  -> 32 -> 6, ``feature = relu(sum_t main_t @ fw[t] + fb)``, the logits
   ``feature @ fow + fob`` and optionally the max softmax probability
   ``1 / sum(exp(l - max))``.
+
+The kernel runs the conv branch per base row into shared memory and the
+two projections per (window, t) from there, on the tensor cores; its
+products read the weights in mma fragment order (``pack_full_weights``,
+made once per engine by ``kernel_weights``).
 
 The pre-gathered-window entry ``stack_logits_multi`` replaces the TPU kernel
 ``_kernel`` (``nanoreviser_tpu/ops/reviser_kernel.py:251``, entries
 ``stack_logits_multi`` ``:611`` and ``stack_logits_pallas`` ``:749``): each
 window brings its own T rows of features and conv-branch output, so nothing
 is shared between windows. One kernel, ``stack_windows``, runs the layer-1
-and layer-3-signal projections per (window, t) and then the same stack core
-and heads as ``stack_heads``, for 1 or 2 models.
+and layer-3-signal projections per (window, t) and then the stack core and
+heads of ``stack_heads_plain``, for 1 or 2 models, on f32 FMAs.
 
 Rounding follows the TPU kernel: matmul operands are bf16 with f32
 accumulation; z1, z2 and s64 are rounded to bf16 (``:339-348``); p1/p3
@@ -31,12 +37,11 @@ stay f32; h is rounded to bf16 after every step while c stays f32
 the next product. Model 2 has 5 classes; its 6th logit carries bias -1e9 so
 it never wins.
 
-Weights are packed unpadded, in the layout the CUDA kernels read: each
-matrix row-major [in, out], LSTM gate columns i,f,c,o of one direction
-contiguous, the two directions side by side where one kernel pass
-produces both (``wi1``, ``b1``, ``wi3s``) and on a leading direction axis
-where the passes run one after the other; both models stacked on a leading
-model axis.
+Weights are packed unpadded, row-major, in the layout the plain versions and
+``stack_windows`` read: each matrix [in, out], LSTM gate columns i,f,c,o of
+one direction contiguous, the two directions side by side where one
+projection produces both (``wi1``, ``b1``, ``wi3s``) and on a leading
+direction axis otherwise; both models stacked on a leading model axis.
 
 Two plain versions sit beside the kernels: the f32 one (the CPU engine's
 path, held against the JAX f32 model) and the bf16-operand one (held
@@ -46,6 +51,8 @@ kernels). Both share one stack core, fed per step either base-row slices
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -59,15 +66,29 @@ Q = 50                              # signal samples per base row
 QP = 64                             # padded row width of the gathered signal
 PAD_LOGIT_BIAS = -1e9
 
+# stack_full's fragment-packed products (pack_full_weights), per model:
+# [n8 tiles, k16 tiles, 32 lanes, 4] for a product, [directions, unit
+# groups of 8, k16 tiles of the segments, gate pairs (i f | c o), 32 lanes,
+# 2 gates x 4] for the gate product of an LSTM layer
+FULL_SHAPES = {
+    "cw1_f": (50, 4, 32, 4), "cw2_f": (50, 25, 32, 4),
+    "cc_f": (8, 25, 32, 4), "ce_f": (8, 4, 32, 4),
+    "l1_f": (2, H1 // 8, 2, 2, 32, 8), "l2_f": (2, H2 // 8, 6, 2, 32, 8),
+    "l3_f": (2, H3 // 8, 20, 2, 32, 8), "l4_f": (2, H4 // 8, 20, 2, 32, 8),
+    "d1_f": (16, 8, 32, 4), "d2_f": (4, 8, 32, 4), "mo_f": (1, 2, 32, 4),
+}
 # matrices go to the kernels in bf16, biases in f32
 MATRICES = ("cw1", "cw2", "cc", "ce", "wi1", "wi3s", "wh1", "wi2", "wh2",
-            "wi3", "wh3", "wi4", "wh4", "d1w", "d2w", "mow", "fw", "fow")
+            "wi3", "wh3", "wi4", "wh4", "d1w", "d2w", "mow", "fw",
+            "fow") + tuple(FULL_SHAPES)
 # the argument order of the C entries (csrc/reviser_stack.cu)
-BASE_ORDER = ("cw1", "cb1", "cw2", "cb2", "cc", "ce", "cbias", "wi1", "b1",
-              "wi3s")
 STACK_ORDER = ("wh1", "wi2", "b2", "wh2", "wi3", "b3", "wh3", "wi4", "b4",
                "wh4", "d1w", "d1b", "d2w", "d2b", "mow", "mob", "fw", "fb",
                "fow", "fob")
+FULL_ORDER = ("cw1_f", "cb1", "cw2_f", "cb2", "cc_f", "ce_f", "cbias",
+              "l1_f", "b1", "l2_f", "b2", "l3_f", "b3", "l4_f", "b4",
+              "d1_f", "d1b", "d2_f", "d2b", "mo_f", "mob",
+              "fw", "fb", "fow", "fob")
 
 
 def stack_shapes(t_len: int) -> dict:
@@ -156,7 +177,7 @@ def pack_stack_weights(fused: dict, t_len: int) -> dict:
     w["b2"] = np.stack([f32(r2[d]["b"]) for d in dirs])
     w["wh2"] = np.stack([f32(r2[d]["wh"]) for d in dirs])
     # total_rnn1 input = [read (2*H2) | signal (64)]: the signal rows are
-    # applied once per base row (base_rows), the read rows per window
+    # applied once per base row (base_rows_plain), the read rows per window
     w["wi3"] = np.stack([f32(t1[d]["wi"])[: 2 * H2] for d in dirs])
     w["wi3s"] = np.concatenate([f32(t1[d]["wi"])[2 * H2 :] for d in dirs], axis=1)
     w["b3"] = np.stack([f32(t1[d]["b"]) for d in dirs])
@@ -198,6 +219,93 @@ def weights_to_device(ws: dict, device, matrix_dtype=torch.bfloat16) -> dict:
     }
 
 
+_FRAG_K = np.array([0, 1, 8, 9])
+
+
+def mma_b_fragments(w: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """The B fragments of ``mma.sync.m16n8k16`` for w [K, N], K zero-padded
+    to a multiple of 16; ``cols`` [n, 8] names the columns of n n8 tiles.
+    Returns [n, K/16, 32, 4]: for k16 tile k and lane l = 4g + i,
+    (w[16k+2i, c], w[16k+2i+1, c], w[16k+2i+8, c], w[16k+2i+9, c]) with
+    c = cols[., g] -- the lane's two 32-bit registers b0, b1."""
+    k_pad = -(-w.shape[0] // 16) * 16
+    wp = np.zeros((k_pad, w.shape[1]), w.dtype)
+    wp[: w.shape[0]] = w
+    lane = np.arange(32)
+    rows = (16 * np.arange(k_pad // 16)[:, None, None]
+            + 2 * (lane % 4)[None, :, None] + _FRAG_K[None, None, :])
+    return wp[rows[None], cols[:, lane // 4][:, None, :, None]]
+
+
+def _dense_fragments(w: np.ndarray) -> np.ndarray:
+    """[N/8, K/16, 32, 4] fragments of a product, N zero-padded to 8."""
+    n8 = -(-w.shape[1] // 8) * 8
+    wp = np.zeros((w.shape[0], n8), w.dtype)
+    wp[:, : w.shape[1]] = w
+    return mma_b_fragments(wp, np.arange(n8).reshape(-1, 8))
+
+
+def _gate_fragments(segments, hidden: int) -> np.ndarray:
+    """[H/8, tiles, 2, 32, 8]: per group u of 8 hidden units, the k16 tiles
+    of each input segment ([K_s, 4H]) in turn, gate g's n8 tile covering
+    columns g*H + 8u .. 8u+7; a tile holds gates (i, f) of the 32 lanes,
+    then gates (c, o), so that a warp copies each half as 512 contiguous
+    bytes."""
+    groups = []
+    for u in range(hidden // 8):
+        cols = hidden * np.arange(4)[:, None] + 8 * u + np.arange(8)[None, :]
+        tiles = np.concatenate([mma_b_fragments(s, cols) for s in segments],
+                               axis=1)                       # [4, tiles, 32, 4]
+        groups.append(tiles.reshape(2, 2, -1, 32, 4).transpose(2, 0, 3, 1, 4)
+                      .reshape(-1, 2, 32, 8))
+    return np.stack(groups)
+
+
+def pack_full_weights(ws: dict) -> dict:
+    """``stack_full``'s fragment-packed products (``FULL_SHAPES``, stacked
+    over the 2 models, f32) from the stacked row-major weights (numpy or
+    tensors, f32 or bf16). A pure permutation with zero padding, so rounding
+    to bf16 before or after packing gives the same bits. Each LSTM layer's
+    gate product per direction: its input segments, then wh -- layer 1 (the
+    features, 6 -> 16 padded) and layer 3 ([l2 | s64]) read the direction's
+    slice of the side-by-side ``wi1`` / ``wi3s``."""
+    w = {k: (v.float().cpu().numpy() if torch.is_tensor(v)
+             else np.asarray(v, np.float32))
+         for k, v in ws.items() if k in _ROW_MAJOR}
+    per_model = []
+    for m in range(w["wh1"].shape[0]):
+        g = {k: v[m] for k, v in w.items()}
+        out = {k: _dense_fragments(g[src]) for k, src in (
+            ("cw1_f", "cw1"), ("cw2_f", "cw2"), ("cc_f", "cc"), ("ce_f", "ce"),
+            ("d1_f", "d1w"), ("d2_f", "d2w"), ("mo_f", "mow"))}
+        segs = {
+            "l1_f": (H1, lambda d: (g["wi1"][:, 4 * H1 * d : 4 * H1 * (d + 1)],
+                                    g["wh1"][d])),
+            "l2_f": (H2, lambda d: (g["wi2"][d], g["wh2"][d])),
+            "l3_f": (H3, lambda d: (g["wi3"][d],
+                                    g["wi3s"][:, 4 * H3 * d : 4 * H3 * (d + 1)],
+                                    g["wh3"][d])),
+            "l4_f": (H4, lambda d: (g["wi4"][d], g["wh4"][d])),
+        }
+        for k, (hidden, seg) in segs.items():
+            out[k] = np.stack([_gate_fragments(seg(d), hidden) for d in (0, 1)])
+        per_model.append(out)
+    packed = stack_models(per_model)
+    for k, shape in FULL_SHAPES.items():
+        if packed[k].shape[1:] != shape:
+            raise ValueError(f"packed {k} has shape {packed[k].shape}, want {shape}")
+    return packed
+
+
+def kernel_weights(ws: dict, device) -> dict:
+    """The kernels' weights on ``device`` from the stacked numpy weights:
+    the row-major set (bf16 matrices, f32 biases) plus ``stack_full``'s
+    fragment-packed products. Made once per engine."""
+    out = weights_to_device(ws, device)
+    out.update(weights_to_device(pack_full_weights(ws), device))
+    return out
+
+
 # ------------------------------------------------------------ plain versions
 
 
@@ -206,11 +314,14 @@ def _rnd(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32) if bf16 else x
 
 
+_ROW_MAJOR = frozenset(stack_shapes(1))
+
+
 def _plain_weights(ws: dict, bf16: bool) -> dict:
-    """f32 views of the weights; matrices rounded to bf16 for the bf16
-    version (biases stay f32, as in the kernels)."""
+    """f32 views of the row-major weights; matrices rounded to bf16 for the
+    bf16 version (biases stay f32, as in the kernels)."""
     return {k: _rnd(v.to(torch.float32), bf16 and k in MATRICES)
-            for k, v in ws.items()}
+            for k, v in ws.items() if k in _ROW_MAJOR}
 
 
 def _hs(x):
@@ -219,8 +330,9 @@ def _hs(x):
 
 def base_rows_plain(ws: dict, sig: torch.Tensor, feats: torch.Tensor,
                     n_rows: int, *, bf16: bool = True):
-    """Plain version of ``base_rows``: rows [0, n_rows) of sig [N, >=50] and
-    feats [N, 6] -> (p1 [2, n_rows, 128], p3 [2, n_rows, 1024]) in f32."""
+    """The per-base-row half of the stack: rows [0, n_rows) of sig
+    [N, >=50] and feats [N, 6] -> (p1 [2, n_rows, 128], p3 [2, n_rows,
+    1024]) in f32."""
     w = _plain_weights(ws, bf16)
     x = _rnd(sig[:n_rows, :Q].to(torch.float32), bf16)
     f = _rnd(feats[:n_rows].to(torch.float32), bf16)
@@ -293,7 +405,7 @@ def _stack_core_plain(w: dict, m: int, p1_at, p3_at, t_len: int,
 def stack_heads_plain(ws: dict, p1: torch.Tensor, p3: torch.Tensor, *,
                       t_len: int, w_valid: int, n_windows: int,
                       want_probs: bool, bf16: bool = True):
-    """Plain version of ``stack_heads``. p1 [2, R, 128], p3 [2, R, 1024]
+    """The per-window half of the stack. p1 [2, R, 128], p3 [2, R, 1024]
     with R >= w_valid + t_len - 1. Returns logits [2, n_windows, 6] and
     probs [2, n_windows] (or None); windows >= w_valid are zero."""
     w = _plain_weights(ws, bf16)
@@ -362,18 +474,22 @@ def stack_logits_plain(ws: dict, sig: torch.Tensor, feats: torch.Tensor, *,
 
 # ------------------------------------------------------------ kernel entries
 
-BASE_ROWS = build.Kernel("base_rows", "reviser_stack",
-                         "nanoreviser_tpu/ops/reviser_kernel.py:283")
-STACK_HEADS = build.Kernel("stack_heads", "reviser_stack",
-                           "nanoreviser_tpu/ops/reviser_kernel.py:283")
+STACK_FULL = build.Kernel("stack_full", "reviser_stack",
+                          "nanoreviser_tpu/ops/reviser_kernel.py:283")
 STACK_WINDOWS = build.Kernel("stack_windows", "reviser_stack",
                              "nanoreviser_tpu/ops/reviser_kernel.py:251")
 
 
-def _weight_ptrs(ws: dict, order, t_len: int, n_models: int = 2):
-    shapes = stack_shapes(t_len)
-    ptrs = []
+def _weight_ptrs(ws: dict, order, t_len: int, n_models: int = 2,
+                 per_model: bool = False):
+    """Device pointers of the weights in ``order``, checked for type, shape
+    and contiguity: one per weight (the stacked array), or with
+    ``per_model`` those of model 0, then those of model 1, ..."""
+    shapes = {**stack_shapes(t_len), **FULL_SHAPES}
     for k in order:
+        if k not in ws:
+            raise ValueError(f"weight {k} missing (stack_full's packed weights "
+                             f"come from kernel_weights)")
         v = ws[k]
         want = torch.bfloat16 if k in MATRICES else torch.float32
         if v.dtype != want or tuple(v.shape[1:]) != shapes[k] or not v.is_contiguous():
@@ -381,78 +497,9 @@ def _weight_ptrs(ws: dict, order, t_len: int, n_models: int = 2):
                              f"{want} [M, {shapes[k]}] contiguous")
         if v.shape[0] != n_models:
             raise ValueError(f"weight {k}: {v.shape[0]} models, want {n_models}")
-        ptrs.append(v.data_ptr())
-    return ptrs
-
-
-def base_rows(ws: dict, sig: torch.Tensor, feats: torch.Tensor, n_rows: int,
-              *, t_len: int):
-    """Per-base-row half of the stack: (p1 [2, n_rows, 128], p3 [2, n_rows,
-    1024]) f32. CPU tensors take the bf16 plain version; CUDA tensors launch
-    the kernel."""
-    if sig.device.type == "cpu":
-        return base_rows_plain(ws, sig, feats, n_rows, bf16=True)
-    build.require_cuda(sig, feats)
-    if sig.dtype != torch.bfloat16 or sig.dim() != 2 or sig.shape[1] != QP:
-        raise ValueError(f"sig must be bf16 [N, {QP}], got {sig.dtype} "
-                         f"{tuple(sig.shape)}")
-    if feats.dtype != torch.float32 or feats.shape[1:] != (6,):
-        raise ValueError(f"feats must be f32 [N, 6], got {feats.dtype} "
-                         f"{tuple(feats.shape)}")
-    if not (sig.is_contiguous() and feats.is_contiguous()):
-        raise ValueError("sig and feats must be contiguous")
-    if n_rows > min(sig.shape[0], feats.shape[0]):
-        raise ValueError(f"n_rows={n_rows} exceeds the input rows")
-    dev = sig.device
-    p1 = torch.empty((2, n_rows, 2 * 4 * H1), dtype=torch.float32, device=dev)
-    p3 = torch.empty((2, n_rows, 2 * 4 * H3), dtype=torch.float32, device=dev)
-    if n_rows == 0:
-        return p1, p3
-    ptrs = _weight_ptrs(ws, BASE_ORDER, t_len)
-    BASE_ROWS.launch(
-        "nr_base_rows",
-        build.ptr_array(ptrs), build.c_ptr(sig), build.c_ptr(feats),
-        build.c_int(n_rows), build.c_ptr(p1), build.c_ptr(p3),
-        build.stream_of(dev))
-    return p1, p3
-
-
-def stack_heads(ws: dict, p1: torch.Tensor, p3: torch.Tensor, *, t_len: int,
-                w_valid: int, n_windows: int, want_probs: bool):
-    """Per-window half of the stack: (logits [2, n_windows, 6], probs
-    [2, n_windows] or None), computed for windows < w_valid (the rest stay
-    zero). CPU tensors take the bf16 plain version; CUDA tensors launch the
-    kernel, over the w_valid windows only."""
-    if p1.device.type == "cpu":
-        return stack_heads_plain(ws, p1, p3, t_len=t_len, w_valid=w_valid,
-                                 n_windows=n_windows, want_probs=want_probs)
-    build.require_cuda(p1, p3)
-    n_p = p1.shape[1]
-    if w_valid and n_p < w_valid + t_len - 1:
-        raise ValueError(f"p1/p3 hold {n_p} rows; {w_valid} windows need "
-                         f"{w_valid + t_len - 1}")
-    if w_valid > n_windows:
-        raise ValueError(f"w_valid={w_valid} exceeds n_windows={n_windows}")
-    for name, arr, width in (("p1", p1, 128), ("p3", p3, 1024)):
-        if (arr.dtype != torch.float32 or arr.shape != (2, n_p, width)
-                or not arr.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous f32 [2, {n_p}, "
-                             f"{width}], got {arr.dtype} {tuple(arr.shape)}")
-    dev = p1.device
-    logits = torch.zeros((2, n_windows, NB_MAX), dtype=torch.float32, device=dev)
-    probs = (torch.zeros((2, n_windows), dtype=torch.float32, device=dev)
-             if want_probs else None)
-    if w_valid == 0:
-        return logits, probs
-    ptrs = _weight_ptrs(ws, STACK_ORDER, t_len)
-    STACK_HEADS.launch(
-        "nr_stack_heads",
-        build.ptr_array(ptrs), build.c_ptr(p1), build.c_ptr(p3),
-        build.c_int(n_p), build.c_int(t_len), build.c_int(w_valid),
-        build.c_int(n_windows), build.c_ptr(logits),
-        build.c_ptr(probs) if probs is not None else build.c_void_p(0),
-        build.stream_of(dev))
-    return logits, probs
+    if per_model:
+        return [ws[k][m].data_ptr() for m in range(n_models) for k in order]
+    return [ws[k].data_ptr() for k in order]
 
 
 def stack_logits_full(ws: dict, sig: torch.Tensor, feats: torch.Tensor, *,
@@ -461,14 +508,62 @@ def stack_logits_full(ws: dict, sig: torch.Tensor, feats: torch.Tensor, *,
     """Logits [2, W, 6] f32 (+ max prob [2, W]) of both models for the
     windows of per-base rows ``sig`` (bf16 [N, 64], the gather output) and
     ``feats`` (f32 [N, 6]); W defaults to N - t_len. Only windows < w_valid
-    are computed. CUDA tensors run the two kernels; CPU tensors their bf16
-    plain versions."""
+    are computed; the rest stay zero. CUDA tensors launch ``stack_full``
+    once (``ws`` from ``kernel_weights``); CPU tensors take the bf16 plain
+    version."""
     if n_windows is None:
         n_windows = sig.shape[0] - t_len
+    if sig.device.type == "cpu":
+        return stack_logits_plain(ws, sig, feats, t_len=t_len, w_valid=w_valid,
+                                  n_windows=n_windows, want_probs=want_probs,
+                                  bf16=True)
+    build.require_cuda(sig, feats)
+    if sig.dtype != torch.bfloat16 or sig.dim() != 2 or sig.shape[1] != QP:
+        raise ValueError(f"sig must be bf16 [N, {QP}], got {sig.dtype} "
+                         f"{tuple(sig.shape)}")
+    if feats.dtype != torch.float32 or feats.dim() != 2 or feats.shape[1] != 6:
+        raise ValueError(f"feats must be f32 [N, 6], got {feats.dtype} "
+                         f"{tuple(feats.shape)}")
+    if not (sig.is_contiguous() and feats.is_contiguous()):
+        raise ValueError("sig and feats must be contiguous")
+    if w_valid > n_windows:
+        raise ValueError(f"w_valid={w_valid} exceeds n_windows={n_windows}")
     n_p = w_valid + t_len - 1 if w_valid else 0
-    p1, p3 = base_rows(ws, sig, feats, n_p, t_len=t_len)
-    return stack_heads(ws, p1, p3, t_len=t_len, w_valid=w_valid,
-                       n_windows=n_windows, want_probs=want_probs)
+    if n_p > min(sig.shape[0], feats.shape[0]):
+        raise ValueError(f"{w_valid} windows need {n_p} rows, got "
+                         f"{sig.shape[0]} / {feats.shape[0]}")
+    dev = sig.device
+    logits = torch.zeros((2, n_windows, NB_MAX), dtype=torch.float32, device=dev)
+    probs = (torch.zeros((2, n_windows), dtype=torch.float32, device=dev)
+             if want_probs else None)
+    if w_valid == 0:
+        return logits, probs
+    ptrs = _weight_ptrs(ws, FULL_ORDER, t_len, per_model=True)
+    STACK_FULL.launch(
+        "nr_stack_full",
+        build.ptr_array(ptrs), build.c_ptr(sig), build.c_ptr(feats),
+        build.c_int(n_p), build.c_int(t_len), build.c_int(w_valid),
+        build.c_int(n_windows), build.c_ptr(logits),
+        build.c_ptr(probs) if probs is not None else build.c_void_p(0),
+        build.stream_of(dev))
+    return logits, probs
+
+
+def stack_full_fetch_bytes(t_len: int) -> int:
+    """Weight bytes one ``stack_full`` block fetches from L2 for one model,
+    by the kernel's schedule: every step streams its layer's packed gate
+    products and reads their biases again; the conv products are read once;
+    each head product once per pair of m16 tiles, ceil(T/2) times; the
+    feature and final weights once."""
+    nbytes = lambda k: 2 * math.prod(FULL_SHAPES[k])
+    lstm = (sum(nbytes(k) for k in ("l1_f", "l2_f", "l3_f", "l4_f"))
+            + 4 * 2 * 4 * (H1 + H2 + H3 + H4))
+    conv = (sum(nbytes(k) for k in ("cw1_f", "cw2_f", "cc_f", "ce_f"))
+            + 4 * (400 + 400 + 64))
+    heads = ((nbytes("d1_f") + nbytes("d2_f") + nbytes("mo_f")) * ((t_len + 1) // 2)
+             + 4 * (128 + 32 + NB_MAX) + 2 * t_len * NB_MAX * 16 + 4 * 16
+             + 2 * 16 * NB_MAX + 4 * NB_MAX)
+    return t_len * lstm + conv + heads
 
 
 # --------------------------------------------- the pre-gathered-window entry
@@ -549,7 +644,7 @@ def executed_mac_counts(t_len: int) -> dict:
     "per_base": the work that depends on one base row only (conv branch,
     layer-1 projection of the features, layer-3 projection of the conv
     output); "per_window": the work per window once those are hoisted per
-    base row (what ``stack_heads`` runs); "naive_per_window": the hoisted
+    base row (what ``stack_heads_plain`` runs); "naive_per_window": the hoisted
     terms recomputed every (window, t); "per_window_pregathered": what the
     pre-gathered-window path runs per window (``stack_windows``), where only
     the projections of the features and conv outputs are per (window, t) --

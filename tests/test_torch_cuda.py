@@ -4,9 +4,11 @@ These tests need an NVIDIA GPU with nvcc and skip without one. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-They hold the window gather bit-exact against its plain version, the three
+They hold the window gather bit-exact against its plain version, the two
 reviser-stack kernels against the bf16 plain versions (max |dlogit| <= 0.05,
-argmax agreement >= 0.995; the pre-gathered-window kernel also for one model,
+argmax agreement >= 0.995; stack_full at T = 11 and 13 over a w_valid that
+ends inside a block of 16 windows, with the windows past it left at zero,
+and w_valid = 0; the pre-gathered-window kernel also for one model,
 equal to model 1 of two, and for batches that end inside a block of 16
 windows), and the engine's labels on the card against the
 CPU engine's f32 labels (agreement >= 0.98), at small sizes; and they check
@@ -29,7 +31,7 @@ def _card():
     return torch.device("cuda", 0)
 
 
-def _weights(seed):
+def _weights(seed, t=11):
     from nanoreviser_torch.models import ReviserConfig, init_reviser_params
     from nanoreviser_torch.models.fused import fold_inference_params
     from nanoreviser_torch.models.reviser import randomize_inference_stats
@@ -38,8 +40,8 @@ def _weights(seed):
     for k, nc in enumerate((6, 5)):
         gen = torch.Generator().manual_seed(seed + k)
         p = randomize_inference_stats(
-            init_reviser_params(gen, ReviserConfig(window=11, n_classes=nc)), gen)
-        per_model.append(rk.pack_stack_weights(fold_inference_params(p), 11))
+            init_reviser_params(gen, ReviserConfig(window=t, n_classes=nc)), gen)
+        per_model.append(rk.pack_stack_weights(fold_inference_params(p), t))
     return rk.stack_models(per_model)
 
 
@@ -60,32 +62,37 @@ def test_gather_kernel_bit_exact():
     assert not got[900:].any()
 
 
-def test_stack_kernels_match_bf16_plain():
+@pytest.mark.parametrize("t", [11, 13])
+def test_stack_full_matches_bf16_plain(t):
     dev = _card()
-    ws = rk.weights_to_device(_weights(5), dev)
+    ws = rk.kernel_weights(_weights(5, t), dev)
     rng = np.random.default_rng(1)
-    n_win, t = 700, 11
+    n_win = 700
     n = n_win + t
     sig = torch.tensor(rng.normal(0, 1, (n, 64)), dtype=torch.float32)
     sig[:, 50:] = 0
     sig = sig.to(torch.bfloat16).to(dev)
     feats = torch.tensor(rng.normal(0.5, 0.3, (n, 6)), dtype=torch.float32, device=dev)
     w_valid = 650                                 # not a multiple of 16
-    p1, p3 = rk.base_rows(ws, sig, feats, w_valid + t - 1, t_len=t)
-    q1, q3 = rk.base_rows_plain(ws, sig, feats, w_valid + t - 1)
-    assert float((p1 - q1).abs().max()) <= 0.05
-    assert float((p3 - q3).abs().max()) <= 0.05
-    lg, pr = rk.stack_heads(ws, p1, p3, t_len=t, w_valid=w_valid,
-                            n_windows=n_win, want_probs=True)
-    lp, pp = rk.stack_heads_plain(ws, p1, p3, t_len=t, w_valid=w_valid,
+    before = rk.STACK_FULL.launches
+    lg, pr = rk.stack_logits_full(ws, sig, feats, t_len=t, w_valid=w_valid,
                                   n_windows=n_win, want_probs=True)
+    lp, pp = rk.stack_logits_plain(ws, sig, feats, t_len=t, w_valid=w_valid,
+                                   n_windows=n_win, want_probs=True, bf16=True)
     torch.cuda.synchronize()
+    assert rk.STACK_FULL.launches == before + 1
     for m, nc in enumerate((6, 5)):
         assert float((lg[m, :w_valid, :nc] - lp[m, :w_valid, :nc]).abs().max()) <= 0.05
         agree = (lg[m, :w_valid].argmax(-1) == lp[m, :w_valid].argmax(-1)).float().mean()
         assert float(agree) >= 0.995
     assert float((pr[:, :w_valid] - pp[:, :w_valid]).abs().max()) <= 0.05
     assert not lg[:, w_valid:].any() and not pr[:, w_valid:].any()
+    assert float(lg[0, :w_valid].std(0).min()) > 1e-3
+    # no window: nothing launched, all zero
+    z, zp = rk.stack_logits_full(ws, sig, feats, t_len=t, w_valid=0,
+                                 n_windows=n_win, want_probs=True)
+    assert rk.STACK_FULL.launches == before + 1
+    assert not z.any() and not zp.any() and z.shape == (2, n_win, 6)
 
 
 def _window_inputs(dev, n, seed):

@@ -1,11 +1,11 @@
 """Port reviser stack (ops/reviser_kernel.py) vs the JAX package, CPU.
 
-* The f32 plain version (base_rows + stack_heads on the dense-form conv
-  branch) equals JAX ``lstm_stack_apply(signal_branch_apply(...))`` within
+* The f32 plain version (base_rows_plain + stack_heads_plain on the
+  dense-form conv branch) equals JAX ``lstm_stack_apply(signal_branch_apply(...))`` within
   1e-5 (f32 both sides; only summation order and the conv's dense form
   differ).
 * The bf16 plain version (what the CPU wrapper runs, and what the CUDA
-  kernels are held against on the card) agrees with the TPU kernel
+  kernel stack_full is held against on the card) agrees with the TPU kernel
   ``stack_logits_full`` in interpret mode at the JAX package's own bars
   (tests/test_reviser_kernel.py): argmax >= 0.99 and atol 0.15, for logits
   and max-probs.
@@ -61,7 +61,13 @@ def test_pack_layout_matches_shapes():
     ws = _packed(fused)
     for k, shape in rk.stack_shapes(T).items():
         assert ws[k].shape == (2,) + shape, k
-    assert set(rk.BASE_ORDER) | set(rk.STACK_ORDER) == set(ws)
+    assert set(rk.stack_shapes(T)) == set(ws)
+    # every row-major weight reaches a kernel: stack_full (packed or as is)
+    # or stack_windows
+    packed_from = {"cw1", "cw2", "cc", "ce", "wi1", "wi3s", "wh1", "wi2", "wh2",
+                   "wi3", "wh3", "wi4", "wh4", "d1w", "d2w", "mow"}
+    assert set(ws) == (set(rk.FULL_ORDER) - set(rk.FULL_SHAPES)) | packed_from
+    assert set(rk.WINDOWS_ORDER) <= set(ws)
     # model 2's padded class can never win
     assert ws["fob"][1, 5] == rk.PAD_LOGIT_BIAS and not ws["fow"][1, :, 5].any()
     # conv dense form equals the JAX package's
@@ -127,11 +133,11 @@ def test_wrapper_on_cpu_is_the_bf16_plain_version():
     sig, feats = _rows(40 + T, seed=4)
     sig64 = torch.nn.functional.pad(torch.from_numpy(sig), (0, 14)).to(torch.bfloat16)
     ws = rk.weights_to_device(_packed(fused), "cpu")
-    before = (rk.BASE_ROWS.launches, rk.STACK_HEADS.launches)
+    before = rk.STACK_FULL.launches
     a = rk.stack_logits_full(ws, sig64, torch.from_numpy(feats), t_len=T,
                              w_valid=32, want_probs=False)
     b = rk.stack_logits_plain(ws, sig64, torch.from_numpy(feats), t_len=T,
                               w_valid=32, n_windows=40, want_probs=False,
                               bf16=True)
     assert torch.equal(a[0], b[0]) and a[1] is None
-    assert (rk.BASE_ROWS.launches, rk.STACK_HEADS.launches) == before
+    assert rk.STACK_FULL.launches == before

@@ -341,7 +341,7 @@ def test_cpu_wrappers_launch_no_kernel():
     feats, sig = _window_inputs(37, seed=52)
     ws = rk.weights_to_device(rk.stack_models(
         [rk.pack_stack_weights(f, T) for f in fused]), "cpu")
-    kernels = (rk.BASE_ROWS, rk.STACK_HEADS, rk.STACK_WINDOWS)
+    kernels = (rk.STACK_FULL, rk.STACK_WINDOWS)
     before = [k.launches for k in kernels]
     f, s = torch.from_numpy(feats), torch.from_numpy(sig)
     got = rk.stack_logits_multi(ws, f, s, t_len=T)
