@@ -1,6 +1,11 @@
 """Chip smoke for the PyTorch/CUDA port: model-path revision on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --gather-only   # phases device, build and gather
+
+``--gather-only`` times the window gather of whatever package sits beside
+this file, so a copy of it in an older checkout times that checkout's
+kernel the same way.
 
 Phases, each printing one JSON line:
 
@@ -11,7 +16,11 @@ Phases, each printing one JSON line:
 3. gather  - packs one full-tier batch (196,608 windows) from synthetic
              reads, decodes it on the card, and holds the window-gather
              kernel bit-exact against its plain version on the card and on
-             the CPU; times kernel and plain version with CUDA events.
+             the CPU; times it per eager call with CUDA events (``ms``,
+             wrapper included, against the 0.019 ms target, 50% of the
+             kernel's bound) and by replaying a CUDA graph of 100 launches
+             (``graph_ms``, the device's time alone), and the plain version
+             per eager call.
 4. stack   - on the same batch, holds stack_full against the bf16 plain
              chain (argmax agreement >= 0.995, max |dlogit| <= 0.05) and
              against the f32 plain chain with TF32 off (agreement >= 0.99
@@ -23,16 +32,21 @@ Phases, each printing one JSON line:
              windowed host prep (prep_read_numpy) of reads until there are
              >= 16,384 windows, then on the card device_preprocess_batch,
              the conv branch and stack_logits_multi for both models, plus
-             one stack_logits_single launch; launch counts are zeroed just
-             before and read just after. Holds the stack_windows kernel
-             against its bf16 plain version (max |dlogit| <= 0.05, argmax
-             agreement >= 0.995) and the f32 model with TF32 off (atol 0.15,
-             agreement >= 0.99 over windows whose f32 top-2 margin exceeds
-             1e-3), the single-model launch equal to model 1 of the pair,
-             and each read's model-1 labels against the main path's
-             (window_gather + stack_full) labels (agreement >= 0.98);
-             merges each read and checks the sequences' plausibility;
-             times kernel and plain version.
+             one stack_logits_single launch, from kernel_weights; launch
+             counts are zeroed just before and read just after. Holds the
+             stack_windows kernel against its bf16 plain version (max
+             |dlogit| <= 0.05, argmax agreement >= 0.995) and the f32 model
+             with TF32 off (atol 0.15, agreement >= 0.99 over windows whose
+             f32 top-2 margin exceeds 1e-3), the single-model launch equal
+             to model 1 of the pair, and each read's model-1 labels against
+             the main path's (window_gather + stack_full) labels (agreement
+             >= 0.98); merges each read and checks the sequences'
+             plausibility; times kernel and plain version; reports the
+             weight bytes the kernel's schedule fetches from L2, their rate
+             and ptxas's registers and spills. Then one T = 13 launch (4-slot
+             weight rings) on 500 seeded random windows against the bf16
+             plain version (the same bars), and its time on as many windows
+             as the T = 11 run.
 6. e2e     - writes 40 synthetic fast5 reads of ~10k bases, random weights
              (the port's init + save_keras_weights), and runs the CLI in model
              mode for fastq and fasta: one output file per read, no failed
@@ -67,6 +81,7 @@ WINDOW = 11
 WINDOWS_BATCH = 16384           # the JAX engine's batch on its non-Pallas path
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12      # HBM3
+GATHER_TARGET_MS = 0.019        # the full-tier gather at 50% of its bound
 
 
 def emit(obj: dict) -> None:
@@ -91,6 +106,30 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so that the
+    host's rate of calls through the Python wrapper, which bounds
+    back-to-back eager calls of a short kernel, does not enter."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def nvidia_smi_line() -> str:
@@ -191,6 +230,7 @@ def phase_gather(tmp: str, weights):
     max_err = float((out.float() - plain.float()).abs().max())
 
     ms = cuda_ms(lambda: window_gather(*args), reps=100)
+    device_ms = graph_ms(lambda: window_gather(*args), reps=100)
     plain_ms = cuda_ms(lambda: window_gather_plain(*args), reps=20)
     n_rows_g = tier.n_rows_g
     sig_bytes = 2 * int(dec.sig.shape[0])
@@ -202,7 +242,8 @@ def phase_gather(tmp: str, weights):
           "write_seconds": round(write_s, 3), "reads_in_batch": n_packed,
           "windows": w_valid, "rows": n_rows_g, "rows_valid": rows_valid,
           "bit_exact_card": True, "bit_exact_cpu": True, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": bound_ms})
+          "graph_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "target_ms": GATHER_TARGET_MS, "meets_target": ms <= GATHER_TARGET_MS})
     row = {"name": "window_gather", "route": "cuda",
            "source": "nanoreviser_torch/csrc/window_gather.cu",
            "replaces": WINDOW_GATHER.replaces, "max_abs_err": max_err,
@@ -313,6 +354,12 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights, build_logs):
     check(sum(c > 0 for c in classes[0]) >= 2, f"model1 labels degenerate {classes[0]}")
     del lf, pf, win_f32
 
+    accuracy = {
+        "b2_vs_bf16_plain": {"max_abs_dlogit": b2_err, "max_abs_dprob": b2_perr,
+                             "argmax_agreement": agree_bf16},
+        "b2_vs_f32_plain": {"max_abs_dlogit": f32_err, "argmax_agreement": agree_f32,
+                            "near_ties_margin_1e-3": near_ties}}
+
     ms = cuda_ms(lambda: rk.stack_logits_full(
         ws, sig, feats, t_len=t, w_valid=w_valid, n_windows=n_win,
         want_probs=True), reps=5)
@@ -330,11 +377,7 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights, build_logs):
     bms, bby = bound(ops, nbytes)
     blocks = -(-w_valid // 16)
     fetch = 2 * blocks * rk.stack_full_fetch_bytes(t)
-    emit({"phase": "stack", "windows": w_valid, "rows": n_p,
-          "b2_vs_bf16_plain": {"max_abs_dlogit": b2_err, "max_abs_dprob": b2_perr,
-                               "argmax_agreement": agree_bf16},
-          "b2_vs_f32_plain": {"max_abs_dlogit": f32_err, "argmax_agreement": agree_f32,
-                              "near_ties_margin_1e-3": near_ties},
+    emit({"phase": "stack", "windows": w_valid, "rows": n_p, **accuracy,
           "label_counts": classes,
           "launches_per_batch": {"window_gather": 1, "stack_full": 1},
           "stack_full_ms": ms, "stack_full_plain_ms": plain_ms,
@@ -350,7 +393,58 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights, build_logs):
              "bound_by": bby, "library_ms": None}]
 
 
-def phase_windows(weights, fast5_dir: str, names: list):
+def windows_t13(dev, n_time: int) -> dict:
+    """stack_windows at T = 13 (4-slot rings): one launch on 500 seeded
+    random windows held to the bf16 plain version's bars, then its time on
+    n_time windows."""
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.models import ReviserConfig, init_reviser_params
+    from nanoreviser_torch.models.fused import fold_inference_params
+    from nanoreviser_torch.models.reviser import randomize_inference_stats
+    from nanoreviser_torch.ops import reviser_kernel as rk
+
+    t = 13
+    per_model = []
+    for k, n_cls in enumerate((6, 5)):
+        gen = torch.Generator().manual_seed(SEED + 13 + k)
+        p = randomize_inference_stats(
+            init_reviser_params(gen, ReviserConfig(window=t, n_classes=n_cls)), gen)
+        per_model.append(rk.pack_stack_weights(fold_inference_params(p), t))
+    ws = rk.kernel_weights(rk.stack_models(per_model), dev)
+    rng = np.random.default_rng(SEED + 13)
+
+    def inputs(n):
+        return (torch.tensor(rng.normal(0.5, 0.3, (n, t, 6)), dtype=torch.float32,
+                             device=dev),
+                torch.tensor(rng.normal(0, 1, (2, n, t, 64)), dtype=torch.float32,
+                             device=dev))
+
+    feats, sig = inputs(500)
+    lg, pr = rk.stack_logits_multi(ws, feats, sig, t_len=t, want_probs=True)
+    lp, pp = rk.stack_windows_plain(ws, feats, sig, t_len=t, want_probs=True,
+                                    bf16=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lg).all()), "T=13 logits non-finite")
+    err = max(float((lg[m, :, :nc] - lp[m, :, :nc]).abs().max())
+              for m, nc in enumerate((6, 5)))
+    agree = [_agreement(lg[m], lp[m])[0] for m in range(2)]
+    check(err <= 0.05, f"stack_windows T=13 vs bf16 plain: max |dlogit| {err}")
+    check(min(agree) >= 0.995, f"stack_windows T=13 vs bf16 plain agreement {agree}")
+    check(float(lg[0].std(0).min()) > 1e-3, "T=13 logits do not vary")
+    feats, sig = inputs(n_time)
+    ms = cuda_ms(lambda: rk.stack_logits_multi(ws, feats, sig, t_len=t,
+                                               want_probs=True), reps=5)
+    fetch = 2 * -(-n_time // 16) * rk.stack_windows_fetch_bytes(t)
+    return {"windows_checked": 500, "max_abs_dlogit_vs_bf16_plain": err,
+            "max_abs_dprob_vs_bf16_plain": float((pr - pp).abs().max()),
+            "agreement_vs_bf16_plain": agree, "ring_slots": rk.windows_ring_slots(t),
+            "windows_timed": n_time, "ms": ms, "l2_weight_fetch_bytes": fetch,
+            "l2_weight_fetch_tb_per_s": fetch / (ms * 1e-3) / 1e12}
+
+
+def phase_windows(weights, fast5_dir: str, names: list, build_logs):
     import numpy as np
     import torch
 
@@ -372,7 +466,7 @@ def phase_windows(weights, fast5_dir: str, names: list):
     n_classes = [nc for _, _, nc in loaded]
     fused = [fold_inference_params(p) for p, _, _ in loaded]
     fused_t = [params_from_numpy(f, dev) for f in fused]
-    ws = rk.weights_to_device(
+    ws = rk.kernel_weights(
         rk.stack_models([rk.pack_stack_weights(f, t) for f in fused]), dev)
     cfg = ReviserConfig(window=t)
 
@@ -472,10 +566,13 @@ def phase_windows(weights, fast5_dir: str, names: list):
     macs = rk.executed_mac_counts(t)["per_window_pregathered"]
     n_models = sig_outs.shape[0]
     ops = 2 * n_models * n_win * macs
-    w_bytes = sum(ws[k].numel() * ws[k].element_size() for k in rk.WINDOWS_ORDER)
+    w_bytes = sum(ws[k].numel() * ws[k].element_size() for k in rk.CORE_ORDER)
     nbytes = ((featw.numel() + sig_outs.numel()) * 4 + w_bytes
               + (logits.numel() + probs.numel()) * 4)
     bms, bby = bound(ops, nbytes)
+    blocks = n_models * -(-n_win // 16)
+    fetch = blocks * rk.stack_windows_fetch_bytes(t)
+    t13 = windows_t13(dev, n_win)
     emit({"phase": "windows", "reads": len(reads), "windows": n_win,
           "prep_seconds": round(prep_s, 3), "launches": launches,
           "max_abs_dlogit_vs_bf16_plain": err, "max_abs_dprob_vs_bf16_plain": perr,
@@ -484,8 +581,12 @@ def phase_windows(weights, fast5_dir: str, names: list):
                            "near_ties_margin_1e-3": near_ties},
           "single_equals_model1": True,
           "labels_vs_main_path_per_read": per_read, "merged_lengths": lengths,
-          "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-          "macs_per_window_per_model": macs})
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+          "macs_per_window_per_model": macs, "blocks": blocks,
+          "ring_slots": rk.windows_ring_slots(t), "l2_weight_fetch_bytes": fetch,
+          "l2_weight_fetch_tb_per_s": fetch / (ms * 1e-3) / 1e12,
+          "ptxas": ptxas_of(build_logs.get("reviser_stack", ""), "stack_windows"),
+          "t13": t13})
     return {"name": "stack_windows", "route": "cuda",
             "source": "nanoreviser_torch/csrc/reviser_stack.cu",
             "replaces": rk.STACK_WINDOWS.replaces, "launches": launches["stack_windows"],
@@ -570,20 +671,25 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
     return launches
 
 
-def main() -> int:
+def main(argv: list) -> int:
     import torch
 
     import nanoreviser_torch  # noqa: F401 — fail before any output without it
 
+    gather_only = argv == ["--gather-only"]
+    check(gather_only or not argv, f"unknown arguments {argv}")
     info = phase_device()
     logs = phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         weights = make_weights(tmp)
         eng, dec, sig, tier, w_valid, fast5_dir, names, grow = phase_gather(tmp, weights)
+        if gather_only:
+            print(nvidia_smi_line(), flush=True)
+            return 0
         srows = phase_stack(eng, dec, sig, tier, w_valid, weights, logs)
         del eng, dec, sig
         torch.cuda.empty_cache()
-        wrow = phase_windows(weights, fast5_dir, names)
+        wrow = phase_windows(weights, fast5_dir, names, logs)
         torch.cuda.empty_cache()
         launches = phase_e2e(tmp, weights, fast5_dir, names)
     rows = [grow] + srows
@@ -600,4 +706,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,42 +1,40 @@
-// The reviser stack for Hopper (sm_90a): two kernels.
+// The reviser stack for Hopper (sm_90a): two kernels on one tensor-core
+// core.
 //
 // stack_full replaces the TPU kernel _kernel_full (nanoreviser_tpu/ops/
 // reviser_kernel.py:283, core _stack_core :92, entry stack_logits_full
 // :678): one launch over (blocks of 16 windows, 2 models) runs the conv
-// branch once per base row, the 4 Bi-LSTM layers, the per-t heads, the
-// logits and the max prob, every product on the tensor cores (mma.sync
-// m16n8k16, bf16 operands, f32 accumulation). Nothing goes back to device
-// memory in between. Its design note is at its section below.
+// branch once per base row into shared memory, then the stack core.
 //
-// stack_windows (grid: blocks of 16 windows x M = 1 or 2 models) replaces
-// _kernel (:251, entries stack_logits_multi :611 and stack_logits_pallas
-// :749), the same stack on pre-gathered per-window inputs. Window w brings
-// its own rows: feats [w][t][6] and the conv-branch output s [m][w][t][64],
-// both f32, rounded to bf16 here. Per (window, t) it runs
-//   layer-1 input  z1 = f_t @ wi1 + b1              6 -> 4*16 per direction
-//   layer-3 signal z3s = s_t @ wi3s                64 -> 4*128 per direction
-// (each in f32 from bf16 operands), then the stack core and the heads:
-//   4 Bi-LSTM layers, H = 16/64/128/64, gates i,f,c,o with Keras
-//   hard_sigmoid, z = ((x_t @ wi + b) + z3s_t) + h @ wh in f32, c in f32, h
-//   rounded to bf16 after every step; the backward pass runs t = T-1..0;
-//   per t: d1 = bf16(relu(l4_t @ d1w + d1b)), d2 = bf16(relu(d1 @ d2w +
-//   d2b)), m = bf16(relu(d2 @ mow + mob)), acc += m @ fw[t];
-//   feature = bf16(relu(acc + fb)); logits = feature @ fow + fob;
-//   probs = 1 / sum(exp(logits - max)).
-// 6.21 M MACs per window and model at T=11.
-//   What bounds it: operations (f32 FMAs on the CUDA cores here; ~1.2 KB
-//   of input per window against ~12 MFLOP).
-//   Design: the weights (~1 MB bf16 per model) cannot sit in 227 KB of
-//   shared memory, so they stream through L2. The block stages its inputs
-//   in shared memory as bf16, the features in buffer A beyond layer 1's
-//   output and the conv outputs in buffer B's units [128, 192), beside
-//   where layer 2 writes, so layer 3 reads [l2 | s] as one 192-wide input:
-//   wi3's rows, then the direction's slice of wi3s (row stride 1024). Layer
-//   outputs stay in shared memory as bf16 ([t][unit][window], two ping-pong
-//   buffers): T x (256 + 192) x 16 x 2 B = 154 KB at T=11. A thread owns
-//   one hidden unit and 1..8 windows: it computes all four gate
-//   pre-activations of its unit, so the gate math and the cell state c
-//   stay in registers; every weight read feeds 1..8 windows.
+// stack_windows replaces _kernel (:251, entries stack_logits_multi :611 and
+// stack_logits_pallas :749), the same stack on pre-gathered per-window
+// inputs: window w brings its own T rows, the features f [w][t][6] and the
+// conv-branch output s [m][w][t][64], both f32. One launch over (blocks of
+// 16 windows, M = 1 or 2 models) stages a block's rows in shared memory as
+// bf16, then runs the stack core.
+//
+// The stack core (stack_core, parts c and d below), shared by both kernels:
+// the 4 Bi-LSTM layers (H = 16/64/128/64, Keras hard_sigmoid gates, c in
+// f32, h rounded to bf16 after every step, the backward pass t = T-1..0),
+// each step one gate product  z = ((x_t @ wi + b) + s_t @ wis) + h @ wh
+// where layer 1's x_t is the features of step t and layer 3's s_t the conv
+// output of step t, then the per-t relu heads, the feature, the logits and
+// the max prob; every product on the tensor cores (mma.sync m16n8k16, bf16
+// operands, f32 accumulation). The two kernels differ only in where step t
+// of window w finds its rows: staged base row w + t in stack_full (a row
+// step of 1), the window's own row t in stack_windows (a row step of 16,
+// the rows stored [t][window]).
+//
+// What bounds stack_windows: operations, 6.21 M MACs per window and model
+// at T = 11 (executed_mac_counts(t)["per_window_pregathered"]) against
+// ~1.2 KB of input per window. What it meets first is, as for stack_full,
+// the L2: every step of every block streams its layer's packed weights
+// from L2 again, 12.33 MB per block and model at T = 11
+// (stack_windows_fetch_bytes in ops/reviser_kernel.py). An FMA design (one
+// thread per hidden unit, f32 on the CUDA cores, scalar bf16 weight loads)
+// reached ~1% of the bound; this one runs the products on the tensor cores
+// and the weights through stack_full's per-lane cp.async rings, so its
+// time is that of the weight stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,16 +59,6 @@ __device__ __forceinline__ float bf16_round(float x) {
 __device__ __forceinline__ float hard_sigmoid(float x) {
   return fminf(fmaxf(0.2f * x + 0.5f, 0.0f), 1.0f);
 }
-
-struct StackWeights {  // one model; order of STACK_ORDER in ops/reviser_kernel.py
-  const bf16* wh1;
-  const bf16* wi2; const float* b2; const bf16* wh2;
-  const bf16* wi3; const float* b3; const bf16* wh3;
-  const bf16* wi4; const float* b4; const bf16* wh4;
-  const bf16* d1w; const float* d1b; const bf16* d2w; const float* d2b;
-  const bf16* mow; const float* mob;
-  const bf16* fw; const float* fb; const bf16* fow; const float* fob;
-};
 
 // Threads 0..kG-1: logits = fe @ fow + fob and probs = 1 / sum(exp(l -
 // max)) of window w0 + tid from the bf16-rounded feature fe [16][kG] (f32),
@@ -107,303 +95,10 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
   }
 }
 
-// -------------------------------------------------------- stack_windows
-
-constexpr int kStackThreads = 256;
-
-// Load RPT consecutive bf16 (window lanes r0..r0+RPT-1) from shared memory.
-template <int RPT>
-__device__ __forceinline__ void load_lanes(const bf16* __restrict__ src,
-                                           float (&v)[RPT]) {
-  if constexpr (RPT == 8) {
-    const uint4 u = *reinterpret_cast<const uint4*>(src);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v[2 * q] = __uint_as_float(w[q] << 16);
-      v[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
-    }
-  } else if constexpr (RPT == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(src);
-    v[0] = __uint_as_float(u.x << 16);
-    v[1] = __uint_as_float(u.x & 0xffff0000u);
-    v[2] = __uint_as_float(u.y << 16);
-    v[3] = __uint_as_float(u.y & 0xffff0000u);
-  } else {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) v[r] = __bfloat162float(src[r]);
-  }
-}
-
-// One direction of one Bi-LSTM layer over T steps for the block's kG
-// windows. in: shared [T][in_ld][kG], input units [0, KIN) with weights wi
-// ([KIN][wi_ld], gate g of unit j at column g*H + j) and bias b, then
-// (KIN2 > 0) units [KIN, KIN + KIN2) with weights wi2 ([KIN2][wi2_ld]).
-// out: shared [T][out_ld][kG], this direction at units [dir*H, dir*H + H).
-// Per step: z = ((x @ wi + b) + x2 @ wi2) + h @ wh.
-template <int H, int KIN, int RPT, int KIN2 = 0>
-__device__ void lstm_pass(const bf16* __restrict__ in, int in_ld,
-                          bf16* __restrict__ out, int out_ld, int dir, int T,
-                          const bf16* __restrict__ wi, int wi_ld,
-                          const float* __restrict__ b,
-                          const bf16* __restrict__ wi2, int wi2_ld,
-                          const bf16* __restrict__ wh) {
-  static_assert(H * (kG / RPT) == kStackThreads, "thread mapping");
-  const int j = threadIdx.x % H;
-  const int r0 = (threadIdx.x / H) * RPT;
-  float c[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) c[r] = 0.0f;
-
-  for (int s = 0; s < T; ++s) {
-    const int t = dir ? T - 1 - s : s;
-    float acc[4][RPT];
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[g][r] = 0.0f;
-
-    {
-      const bf16* x = in + (size_t)t * in_ld * kG + r0;
-#pragma unroll 2
-      for (int k = 0; k < KIN; ++k) {
-        float xv[RPT];
-        load_lanes<RPT>(x + k * kG, xv);
-        const bf16* wk = wi + (size_t)k * wi_ld + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float wv = __bfloat162float(wk[g * H]);
-#pragma unroll
-          for (int r = 0; r < RPT; ++r) acc[g][r] = fmaf(xv[r], wv, acc[g][r]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float bv = b[g * H + j];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) acc[g][r] += bv;
-      }
-    }
-    if constexpr (KIN2 > 0) {
-      const bf16* x = in + ((size_t)t * in_ld + KIN) * kG + r0;
-      float acc2[4][RPT];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) acc2[g][r] = 0.0f;
-#pragma unroll 2
-      for (int k = 0; k < KIN2; ++k) {
-        float xv[RPT];
-        load_lanes<RPT>(x + k * kG, xv);
-        const bf16* wk = wi2 + (size_t)k * wi2_ld + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float wv = __bfloat162float(wk[g * H]);
-#pragma unroll
-          for (int r = 0; r < RPT; ++r) acc2[g][r] = fmaf(xv[r], wv, acc2[g][r]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) acc[g][r] += acc2[g][r];
-    }
-    if (s > 0) {
-      const int tp = dir ? t + 1 : t - 1;
-      const bf16* hp = out + ((size_t)tp * out_ld + dir * H) * kG + r0;
-      float hacc[4][RPT];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) hacc[g][r] = 0.0f;
-#pragma unroll 2
-      for (int k = 0; k < H; ++k) {
-        float hv[RPT];
-        load_lanes<RPT>(hp + k * kG, hv);
-        const bf16* wk = wh + (size_t)k * 4 * H + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float wv = __bfloat162float(wk[g * H]);
-#pragma unroll
-          for (int r = 0; r < RPT; ++r) hacc[g][r] = fmaf(hv[r], wv, hacc[g][r]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) acc[g][r] += hacc[g][r];
-    }
-    bf16* o = out + ((size_t)t * out_ld + dir * H + j) * kG + r0;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float ig = hard_sigmoid(acc[0][r]);
-      const float fg = hard_sigmoid(acc[1][r]);
-      const float gg = tanhf(acc[2][r]);
-      const float og = hard_sigmoid(acc[3][r]);
-      c[r] = fg * c[r] + ig * gg;
-      o[r] = __float2bfloat16_rn(og * tanhf(c[r]));
-    }
-    __syncthreads();
-  }
-}
-
-// out[j][r] for rows r0..r0+RPT-1 = act(sum_k in[k][r] * W[k][j] + b[j]),
-// in: shared bf16 [K][kG] or f32 [K][kG].
-template <int RPT, typename T_IN>
-__device__ __forceinline__ void head_dense(const T_IN* __restrict__ in, int K,
-                                           const bf16* __restrict__ W, int N,
-                                           const float* __restrict__ b, int j,
-                                           int r0, float* __restrict__ out) {
-  float acc[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const float wv = __bfloat162float(W[k * N + j]);
-    float xv[RPT];
-    if constexpr (sizeof(T_IN) == 2) {
-      load_lanes<RPT>(reinterpret_cast<const bf16*>(in) + k * kG + r0, xv);
-    } else {
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) xv[r] = in[k * kG + r0 + r];
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r] = fmaf(xv[r], wv, acc[r]);
-  }
-  const float bv = b[j];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    out[j * kG + r0 + r] = bf16_round(fmaxf(acc[r] + bv, 0.0f));
-}
-
-// The per-t relu heads, the feature, the logits and the max prob of the
-// block's kG windows from layer 4's output B [T][128][kG]; A (>= 11.6 KB)
-// is free and holds the f32 scratch. Writes windows w0 + r < w_valid at
-// row (m * n_windows + w0 + r).
-__device__ void heads_out(const StackWeights& w, bf16* A, const bf16* B,
-                          int T, int m, int w0, int w_valid, int n_windows,
-                          float* __restrict__ logits,
-                          float* __restrict__ probs) {
-  const int tid = threadIdx.x;
-  float* h1 = reinterpret_cast<float*>(A);   // [128][kG]
-  float* h2 = h1 + 128 * kG;                 // [32][kG]
-  float* mo = h2 + 32 * kG;                  // [6][kG]
-  float* fe = mo + kNB * kG;                 // [16][kG]
-  const int jf = tid % 16, rf = tid / 16;    // feature unit, window
-  float facc = 0.0f;
-  for (int t = 0; t < T; ++t) {
-    const bf16* l4 = B + (size_t)t * 128 * kG;
-    head_dense<8>(l4, 128, w.d1w, 128, w.d1b, tid % 128, (tid / 128) * 8, h1);
-    __syncthreads();
-    head_dense<2>(h1, 128, w.d2w, 32, w.d2b, tid % 32, (tid / 32) * 2, h2);
-    __syncthreads();
-    if (tid < kNB * kG)
-      head_dense<1>(h2, 32, w.mow, kNB, w.mob, tid % kNB, tid / kNB, mo);
-    __syncthreads();
-    const bf16* fwt = w.fw + (size_t)t * kNB * 16;
-#pragma unroll
-    for (int c = 0; c < kNB; ++c)
-      facc = fmaf(mo[c * kG + rf], __bfloat162float(fwt[c * 16 + jf]), facc);
-    __syncthreads();
-  }
-  fe[jf * kG + rf] = bf16_round(fmaxf(facc + w.fb[jf], 0.0f));
-  __syncthreads();
-  logits_out(fe, w.fow, w.fob, m, w0, w_valid, n_windows, logits, probs);
-}
-
-struct PreWeights {  // one model: the per-(window, t) projections' weights
-  const bf16* wi1; const float* b1; const bf16* wi3s;
-};
-struct WindowsArgs { PreWeights p[2]; StackWeights s[2]; };
-
-__global__ void __launch_bounds__(kStackThreads, 1)
-stack_windows_kernel(WindowsArgs wa, const float* __restrict__ feats,
-                     const float* __restrict__ sig, int n_win, int T,
-                     float* __restrict__ logits, float* __restrict__ probs) {
-  const int m = blockIdx.y;
-  const PreWeights& pw = wa.p[m];
-  const StackWeights& w = wa.s[m];
-  const int w0 = blockIdx.x * kG;
-  const int nv = min(kG, n_win - w0);
-  const int tid = threadIdx.x;
-  extern __shared__ uint4 smem_u4[];
-  bf16* A = reinterpret_cast<bf16*>(smem_u4);   // [T][256][kG]
-  bf16* B = A + (size_t)T * 256 * kG;           // [T][192][kG]
-  bf16* F = A + (size_t)T * 2 * kH1 * kG;       // [T][6][kG], after layer 1's out
-
-  // stage the block's inputs as bf16: the features into F, the conv
-  // outputs into B's units [128, 192), beside where layer 2 writes its
-  // output, so that layer 3 reads [l2 | sig] as one 192-wide input.
-  // Windows past n_win are zero and never written out.
-  for (int e = tid; e < kG * T * 6; e += kStackThreads) {
-    const int r = e / (T * 6), t = (e / 6) % T, k = e % 6;
-    const float v = r < nv ? feats[((size_t)(w0 + r) * T + t) * 6 + k] : 0.0f;
-    F[((size_t)t * 6 + k) * kG + r] = __float2bfloat16_rn(v);
-  }
-  const float* sm = sig + ((size_t)m * n_win + w0) * T * 64;
-  for (int e = tid; e < kG * T * 64; e += kStackThreads) {
-    const int r = e / (T * 64), t = (e / 64) % T, k = e % 64;
-    const float v = r < nv ? sm[e] : 0.0f;
-    B[((size_t)t * 192 + 2 * kH2 + k) * kG + r] = __float2bfloat16_rn(v);
-  }
-  __syncthreads();
-
-  // layer 1 (H=16): z = (f_t @ wi1 + b1) + h @ wh1      -> A as [T][32][kG]
-  for (int d = 0; d < 2; ++d)
-    lstm_pass<kH1, 6, 1>(F, 6, A, 2 * kH1, d, T, pw.wi1 + d * 4 * kH1,
-                         2 * 4 * kH1, pw.b1 + d * 4 * kH1, nullptr, 0,
-                         w.wh1 + d * kH1 * 4 * kH1);
-  // layer 2 (H=64): z = (l1_t @ wi2 + b2) + h @ wh2  -> B units [0,128) of 192
-  for (int d = 0; d < 2; ++d)
-    lstm_pass<kH2, 2 * kH1, 4>(A, 2 * kH1, B, 192, d, T,
-                               w.wi2 + d * 2 * kH1 * 4 * kH2, 4 * kH2,
-                               w.b2 + d * 4 * kH2, nullptr, 0,
-                               w.wh2 + d * kH2 * 4 * kH2);
-  // layer 3 (H=128): z = ((l2_t @ wi3 + b3) + s_t @ wi3s) + h @ wh3
-  //                                                   -> A as [T][256][kG]
-  for (int d = 0; d < 2; ++d)
-    lstm_pass<kH3, 2 * kH2, 8, 64>(B, 192, A, 2 * kH3, d, T,
-                                   w.wi3 + d * 2 * kH2 * 4 * kH3, 4 * kH3,
-                                   w.b3 + d * 4 * kH3, pw.wi3s + d * 4 * kH3,
-                                   2 * 4 * kH3, w.wh3 + d * kH3 * 4 * kH3);
-  // layer 4 (H=64): z = (l3_t @ wi4 + b4) + h @ wh4     -> B as [T][128][kG]
-  for (int d = 0; d < 2; ++d)
-    lstm_pass<kH4, 2 * kH3, 4>(A, 2 * kH3, B, 2 * kH4, d, T,
-                               w.wi4 + d * 2 * kH3 * 4 * kH4, 4 * kH4,
-                               w.b4 + d * 4 * kH4, nullptr, 0,
-                               w.wh4 + d * kH4 * 4 * kH4);
-  heads_out(w, A, B, T, m, w0, n_win, n_win, logits, probs);
-}
-
-// Model m's stack weights from the stacked [M, ...] arrays, in STACK_ORDER.
-StackWeights stack_weights_of(const void* const* w, int m, int T) {
-  const size_t sizes[20] = {
-      2 * kH1 * 4 * kH1,
-      2 * 2 * kH1 * 4 * kH2, 2 * 4 * kH2, 2 * kH2 * 4 * kH2,
-      2 * 2 * kH2 * 4 * kH3, 2 * 4 * kH3, 2 * kH3 * 4 * kH3,
-      2 * 2 * kH3 * 4 * kH4, 2 * 4 * kH4, 2 * kH4 * 4 * kH4,
-      128 * 128, 128, 128 * 32, 32, 32 * kNB, kNB,
-      (size_t)T * kNB * 16, 16, 16 * kNB, kNB};
-  const bool is_bf16[20] = {1, 1, 0, 1, 1, 0, 1, 1, 0, 1,
-                            1, 0, 1, 0, 1, 0, 1, 0, 1, 0};
-  const void* p[20];
-  for (int i = 0; i < 20; ++i)
-    p[i] = is_bf16[i] ? (const void*)((const bf16*)w[i] + m * sizes[i])
-                      : (const void*)((const float*)w[i] + m * sizes[i]);
-  return StackWeights{
-      (const bf16*)p[0],
-      (const bf16*)p[1], (const float*)p[2], (const bf16*)p[3],
-      (const bf16*)p[4], (const float*)p[5], (const bf16*)p[6],
-      (const bf16*)p[7], (const float*)p[8], (const bf16*)p[9],
-      (const bf16*)p[10], (const float*)p[11], (const bf16*)p[12],
-      (const float*)p[13], (const bf16*)p[14], (const float*)p[15],
-      (const bf16*)p[16], (const float*)p[17], (const bf16*)p[18],
-      (const float*)p[19]};
-}
-
-// ----------------------------------------------------------- stack_full
+// ---------------------------------------------------------- the design
 //
-// Grid: (blocks of kG = 16 windows over the w_valid windows) x 2 models,
-// 256 threads = 8 warps. Window w covers base rows w .. w+T-1. A block:
+// Grid: (blocks of kG = 16 windows) x models, 256 threads = 8 warps.
+// stack_full (window w covers base rows w .. w+T-1):
 //
 // a. stages base rows w0 .. w0+31 (kG + T - 1 <= 32 are used) of the
 //    gathered signal (bf16, 50 of its 64 columns) and of the features (f32,
@@ -416,46 +111,54 @@ StackWeights stack_weights_of(const void* const* w, int m, int T) {
 //    later; s64 and the features stay for the whole block. The rows that
 //    overlap the next block are computed again there: ~7% of the block's
 //    products.
-// c. runs the 4 Bi-LSTM layers, both directions at once (warps 0-3 the
-//    forward pass, 4-7 the backward one), each step as one [16 windows x
-//    4H] gate product   z = ((x_t @ wi + b) + s_t @ wis) + h @ wh
-//    where layer 1's x_t is the features of rows w+t (k 6, zero-padded to
-//    16) and layer 3's s_t the s64 rows w+t. So the layer-1 input and the
-//    layer-3 signal terms are computed per (window, t) from the staged
-//    rows: 13% more MACs than hoisting them per row (executed_mac_counts:
-//    per_window_pregathered against per_window), but on the tensor cores,
-//    and no f32 per-row projection has to sit in shared memory (26 x 1,024
-//    x 4 B = 106 KB of p3 does not fit beside 140 KB of layer outputs at
-//    T = 11; one direction's, 53 KB, would, but not at T = 13, which this
-//    kernel also runs). mma.sync m16n8k16 with the 16 windows as M: a warp
-//    owns groups of 8 hidden units and computes a group's four n8 tiles,
-//    one per gate, so each thread holds i, f, c and o of the same (window,
-//    unit) pairs in its accumulators and the gate math and c stay in
-//    registers (wgmma would need the product transposed, 64 gate rows as M,
-//    for a 16-wide N; mma.sync keeps the TPU kernel's per-step structure).
-//    Layer 3 (H = 128) gives each warp 4 groups, layers 2 and 4 two, layer
-//    1 one (2 warps a direction). h is rounded to bf16 and stored row-major
+//
+// stack_windows stages the block's features ([t][window][kLdF], k padded
+// to 16) in buffer A past where layer 1 writes its output (layer 3, which
+// overwrites them, no longer needs them) and the conv outputs of its model
+// ([t][window][kLdX]) in a buffer of their own, both rounded to bf16;
+// windows at or past n_win are zero and never written out. Then both run
+// the stack core:
+//
+// c. the 4 Bi-LSTM layers, both directions at once (warps 0-3 the forward
+//    pass, 4-7 the backward one), each step as one [16 windows x 4H] gate
+//    product   z = ((x_t @ wi + b) + s_t @ wis) + h @ wh   where layer 1's
+//    x_t is the features of step t (k 6, zero-padded to 16) and layer 3's
+//    s_t the conv output of step t. So the layer-1 input and the layer-3
+//    signal terms are computed per (window, t): in stack_full 13% more MACs
+//    than hoisting them per row (executed_mac_counts: per_window_pregathered
+//    against per_window), but on the tensor cores, and no f32 per-row
+//    projection has to sit in shared memory (26 x 1,024 x 4 B = 106 KB of
+//    p3 does not fit beside 140 KB of layer outputs at T = 11).
+//    mma.sync m16n8k16 with the 16 windows as M: a warp owns groups of 8
+//    hidden units and computes a group's four n8 tiles, one per gate, so
+//    each thread holds i, f, c and o of the same (window, unit) pairs in
+//    its accumulators and the gate math and c stay in registers (wgmma
+//    would need the product transposed, 64 gate rows as M, for a 16-wide
+//    N; mma.sync keeps the TPU kernel's per-step structure). Layer 3 (H =
+//    128) gives each warp 4 groups, layers 2 and 4 two, layer 1 one (2
+//    warps a direction). h is rounded to bf16 and stored row-major
 //    ([t][window][unit]), the A operand of the next product (ldmatrix).
-// d. runs the per-t heads as three products over all 16T (t, window) rows
-//    at once: d1 = bf16(relu(l4 @ d1w + d1b)), d2 = bf16(relu(d1 @ d2w +
+// d. the per-t heads as three products over all 16T (t, window) rows at
+//    once: d1 = bf16(relu(l4 @ d1w + d1b)), d2 = bf16(relu(d1 @ d2w +
 //    d2b)), m = bf16(relu(d2 @ mow + mob)); then on the CUDA cores acc +=
 //    m_t @ fw[t], feature = bf16(relu(acc + fb)), logits = feature @ fow +
 //    fob, probs = 1 / sum(exp(l - max)). Windows >= w_valid are not
 //    written.
 //
-// What bounds it: operations, 4.27e12 FLOP per full batch of 191,232
-// windows by the JAX package's algorithmic count (4.3 ms at 989 TFLOP/s);
-// its input and output are ~37 MB. What this design meets first is the L2:
-// the LSTM weights (1 MB of fragments a model) do not fit in shared memory,
-// so every step of every block streams its layer's weights from L2 again,
-// 12.8 MB per block and model, 305 GB per full batch at T = 11
-// (stack_full_fetch_bytes in ops/reviser_kernel.py). So the weights are packed once per engine in the
-// order a warp consumes them (pack_full_weights), and each lane copies its
-// own 32 bytes of every 1 KB tile into its own slice of a per-warp ring in
-// shared memory with cp.async, S - 1 = 5..7 tiles ahead and across the
-// step and layer barriers: no lane waits on another for weights, and 40-56
-// KB a block are in flight. The conv and head weights are read once per
-// block (once per pair of m-tiles for the heads) straight from L2.
+// What bounds stack_full: operations, 4.27e12 FLOP per full batch of
+// 191,232 windows by the JAX package's algorithmic count (4.3 ms at 989
+// TFLOP/s); its input and output are ~37 MB. What both kernels meet first
+// is the L2: the LSTM weights (1 MB of fragments a model) do not fit in
+// shared memory, so every step of every block streams its layer's weights
+// from L2 again, 12.8 MB per block and model, 305 GB per full batch at
+// T = 11 (stack_full_fetch_bytes in ops/reviser_kernel.py). So the weights
+// are packed once per engine in the order a warp consumes them
+// (pack_full_weights), and each lane copies its own 32 bytes of every 1 KB
+// tile into its own slice of a per-warp ring in shared memory with
+// cp.async, S - 1 = 3..7 tiles ahead and across the step barriers: no lane
+// waits on another for weights, and 24-56 KB a block are in flight. The
+// conv and head weights are read once per block (once per pair of m-tiles
+// for the heads) straight from L2.
 //
 // Packed products (pack_full_weights): the B fragments of mma.m16n8k16.
 // For W [K, N], n8 tile n, k16 tile k, lane l = 4g + i:
@@ -469,9 +172,11 @@ StackWeights stack_weights_of(const void* const* w, int m, int T) {
 // Shared memory: layer outputs A [T][16][264] (layers 1, 3) and B
 // [T][16][136] (layers 2, 4), bf16, rows padded by 16 bytes so that the 8
 // row reads of an ldmatrix phase hit distinct banks; the staged rows; the
-// rings. 213,248 B at T = 11 (8-slot rings), 222,464 B at T = 13 (6-slot).
+// rings. stack_full: 213,248 B at T = 11 (8-slot rings), 222,464 B at
+// T = 13 (6-slot). stack_windows: 231,680 B at T = 11 (8-slot), 229,120 B
+// at T = 13 (4-slot).
 
-constexpr int kFullThreads = 256;
+constexpr int kThreads = 256;
 constexpr int kRows = 32;                // staged base rows per block
 constexpr int kLdX = 72;                 // row strides (bf16 elements), each
 constexpr int kLdF = 24;                 // an odd number of 16-byte units
@@ -480,6 +185,7 @@ constexpr int kLdL1 = 40, kLdL2 = 136, kLdL3 = 264, kLdL4 = 136;
 constexpr int kLdH1 = 136, kLdH2 = 40;
 constexpr int kTile = 512;               // bf16 of one streamed weight tile
 constexpr int kConvNT = kConv / 8;       // n8 tiles of z1 and z2
+constexpr size_t kRingSlot = (size_t)(kThreads / 32) * kTile * sizeof(bf16);
 
 // ---- PTX wrappers
 
@@ -607,14 +313,17 @@ __device__ __forceinline__ void gate_tiles(const bf16* a_lane, bool zero_a,
 
 // One Bi-LSTM layer (hidden size H) over T steps, both directions at once.
 // Inputs per step t, rows r = 0..15 (windows): x row (t * x_step + r) of
-// x [.][x_ld] (KX k16 tiles), s row (t + r) of s [.][kLdX] (KS tiles; the
-// signal rows), h of the previous step from out (KH tiles). out: [T][16]
-// [out_ld], direction d at columns [d*H, d*H + H). wpack: the layer's
-// packed [2][H/8][KX+KS+KH][2][32][8]; bias [2][4H].
+// x [.][x_ld] (KX k16 tiles), s row (t * s_step + r) of s [.][s_ld] (KS
+// tiles; the conv outputs), h of the previous step from out (KH tiles).
+// out: [T][16][out_ld], direction d at columns [d*H, d*H + H). wpack: the
+// layer's packed [2][H/8][KX+KS+KH][2][32][8]; bias [2][4H].
 template <int H, int KX, int KS, int KH, int S>
-__device__ void lstm_layer(const bf16* x, int x_ld, int x_step, const bf16* s,
-                           bf16* out, int out_ld, const bf16* wpack,
-                           const float* __restrict__ bias, int T, bf16* ring) {
+__device__ __forceinline__ void lstm_layer(const bf16* x, int x_ld, int x_step,
+                                           const bf16* s, int s_ld, int s_step,
+                                           bf16* out, int out_ld,
+                                           const bf16* wpack,
+                                           const float* __restrict__ bias,
+                                           int T, bf16* ring) {
   constexpr int G = H / 8, GPW = G >= 4 ? G / 4 : 1, TILES = KX + KS + KH;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int dir = warp >> 2, u0 = (warp & 3) * GPW;
@@ -637,7 +346,7 @@ __device__ void lstm_layer(const bf16* x, int x_ld, int x_step, const bf16* s,
     if (active) {
       const int tp = st == 0 ? t : (dir ? t + 1 : t - 1);
       const bf16* xa = x + ((size_t)t * x_step + a_row) * x_ld + a_col;
-      const bf16* sa = s + (size_t)(t + a_row) * kLdX + a_col;
+      const bf16* sa = s + ((size_t)t * s_step + a_row) * s_ld + a_col;
       const bf16* ha = out + ((size_t)tp * kG + a_row) * out_ld + dir * H + a_col;
 #pragma unroll
       for (int q = 0; q < GPW; ++q) {
@@ -723,7 +432,7 @@ __device__ __forceinline__ void dense_tiles(const bf16* A, int lda, int n_mt,
   const int lane = threadIdx.x & 31;
   const int n_mc = (n_mt + 1) / 2;
   for (int task = threadIdx.x >> 5; task < n_nt * n_mc;
-       task += kFullThreads / 32) {
+       task += kThreads / 32) {
     const int nt = task % n_nt, mc = task / n_nt;
     const int nm = min(2, n_mt - 2 * mc);
     float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
@@ -763,98 +472,57 @@ struct MainOut {  // mo[r][c] = bf16(relu(v + mob[c])) as f32, c < 6; 0 past
   }
 };
 
-struct FullWeights {  // one model, in FULL_ORDER of ops/reviser_kernel.py
-  const uint2* cw1; const float* cb1; const uint2* cw2; const float* cb2;
-  const uint2* cc; const uint2* ce; const float* cbias;
+struct CoreWeights {  // one model, in CORE_ORDER of ops/reviser_kernel.py
   const bf16* l1; const float* b1; const bf16* l2; const float* b2;
   const bf16* l3; const float* b3; const bf16* l4; const float* b4;
   const uint2* d1; const float* d1b; const uint2* d2; const float* d2b;
   const uint2* mo; const float* mob;
   const bf16* fw; const float* fb; const bf16* fow; const float* fob;
 };
-constexpr int kFullArgs = 25;
+constexpr int kCoreArgs = 18;
+
+struct FullWeights {  // one model, in FULL_ORDER: the conv branch, the core
+  const uint2* cw1; const float* cb1; const uint2* cw2; const float* cb2;
+  const uint2* cc; const uint2* ce; const float* cbias;
+  CoreWeights core;
+};
+constexpr int kConvArgs = 7, kFullArgs = kConvArgs + kCoreArgs;
 struct FullPair { FullWeights m[2]; };
+struct CorePair { CoreWeights m[2]; };
 
+CoreWeights core_weights_of(const void* const* p) {
+  return CoreWeights{
+      (const bf16*)p[0], (const float*)p[1], (const bf16*)p[2],
+      (const float*)p[3], (const bf16*)p[4], (const float*)p[5],
+      (const bf16*)p[6], (const float*)p[7],
+      (const uint2*)p[8], (const float*)p[9], (const uint2*)p[10],
+      (const float*)p[11], (const uint2*)p[12], (const float*)p[13],
+      (const bf16*)p[14], (const float*)p[15], (const bf16*)p[16],
+      (const float*)p[17]};
+}
+
+// c. and d. for the block's 16 windows w0.. of model m: the features (layer
+// 1's input) at row (t * f_step + r) of F [.][kLdF], the conv outputs
+// (layer 3's signal input) at row (t * s_step + r) of SG [.][kLdX]. A
+// [T][16][kLdL3] and B [T][16][kLdL2] hold the layer outputs (F may lie in
+// A past [T][16][kLdL1], where layer 1 writes), then the heads' scratch.
 template <int S>
-__global__ void __launch_bounds__(kFullThreads, 1)
-stack_full_kernel(FullPair wp, const bf16* __restrict__ sig,
-                  const float* __restrict__ feats, int n_p, int T,
-                  int w_valid, int n_windows, float* __restrict__ logits,
-                  float* __restrict__ probs) {
-  const int m = blockIdx.y;
-  const FullWeights& w = wp.m[m];
-  const int w0 = blockIdx.x * kG;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int gq = (tid & 31) >> 2, tq = tid & 3;
-  extern __shared__ uint4 smem_u4[];
-  bf16* A = reinterpret_cast<bf16*>(smem_u4);              // [T][16][kLdL3]
-  bf16* B = A + (size_t)T * kG * kLdL3;                     // [T][16][kLdL2]
-  bf16* S64 = B + (size_t)T * kG * kLdL2;                   // [kRows][kLdX]
-  bf16* FB = S64 + kRows * kLdX;                            // [kRows][kLdF]
-  float* FS = reinterpret_cast<float*>(FB + kRows * kLdF);  // [kRows][6]
-  bf16* ring = reinterpret_cast<bf16*>(FS + kRows * 6) + (size_t)warp * S * kTile;
-  // the conv branch's scratch, in A (and B at small T) before layer 1
-  bf16* X = A;                                              // [kRows][kLdX]
-  bf16* Z1 = X + kRows * kLdX;                              // [kRows][kLdZ]
-  bf16* Z2 = Z1 + kRows * kLdZ;                             // [kRows][kLdZ]
-
-  // a. stage the rows
-  for (int e = tid; e < kRows * 8; e += kFullThreads) {
-    const int r = e >> 3, q = e & 7, row = w0 + r;
-    bf16* dst = X + r * kLdX + q * 8;
-    if (row < n_p) cp_async16(dst, sig + (size_t)row * kQP + q * 8);
-    else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-  }
-  for (int e = tid; e < kRows * 3; e += kFullThreads) {
-    const int r = e / 3, q = e % 3, row = w0 + r;
-    float* dst = FS + r * 6 + q * 2;
-    if (row < n_p) {
-      cp_async8(dst, feats + (size_t)row * 6 + q * 2);
-    } else {
-      dst[0] = 0.0f;
-      dst[1] = 0.0f;
-    }
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // signal columns 50..63 are not the model's; features to bf16, k padded
-  for (int e = tid; e < kRows * (kQP - kQ); e += kFullThreads)
-    X[(e / (kQP - kQ)) * kLdX + kQ + e % (kQP - kQ)] = __float2bfloat16_rn(0.0f);
-  for (int e = tid; e < kRows * 16; e += kFullThreads) {
-    const int r = e >> 4, k = e & 15;
-    FB[r * kLdF + k] = __float2bfloat16_rn(k < 6 ? FS[r * 6 + k] : 0.0f);
-  }
-  __syncthreads();
-
-  // b. the conv branch, per row
-  dense_tiles<4>(X, kLdX, 2, w.cw1, kConvNT, ReluBf16{Z1, kLdZ, w.cb1});
-  __syncthreads();
-  dense_tiles<25>(Z1, kLdZ, 2, w.cw2, kConvNT, ReluBf16{Z2, kLdZ, w.cb2});
-  __syncthreads();
-  {  // s64 = bf16((z2 @ cc + x @ ce) + cbias): n8 tile = warp
-    float a[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-    float x[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-    tile_mma<25>(Z2, kLdZ, 0, 2, w.cc + (size_t)warp * 25 * 32, a);
-    tile_mma<4>(X, kLdX, 0, 2, w.ce + (size_t)warp * 4 * 32, x);
-    const int col = warp * 8 + 2 * tq;
-    const float2 b = __ldg(reinterpret_cast<const float2*>(w.cbias + col));
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 16 * i + gq;
-      put_bf16x2(S64 + r * kLdX + col, (a[i][0] + x[i][0]) + b.x,
-                 (a[i][1] + x[i][1]) + b.y);
-      put_bf16x2(S64 + (r + 8) * kLdX + col, (a[i][2] + x[i][2]) + b.x,
-                 (a[i][3] + x[i][3]) + b.y);
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ void stack_core(
+    const CoreWeights& w, bf16* A, bf16* B, const bf16* F, int f_step,
+    const bf16* SG, int s_step, int T, bf16* ring, int m, int w0,
+    int w_valid, int n_windows, float* __restrict__ logits,
+    float* __restrict__ probs) {
+  const int tid = threadIdx.x;
 
   // c. the Bi-LSTM layers
-  lstm_layer<kH1, 1, 0, 1, S>(FB, kLdF, 1, S64, A, kLdL1, w.l1, w.b1, T, ring);
-  lstm_layer<kH2, 2, 0, 4, S>(A, kLdL1, kG, S64, B, kLdL2, w.l2, w.b2, T, ring);
-  lstm_layer<kH3, 8, 4, 8, S>(B, kLdL2, kG, S64, A, kLdL3, w.l3, w.b3, T, ring);
-  lstm_layer<kH4, 16, 0, 4, S>(A, kLdL3, kG, S64, B, kLdL4, w.l4, w.b4, T, ring);
+  lstm_layer<kH1, 1, 0, 1, S>(F, kLdF, f_step, SG, kLdX, s_step, A, kLdL1,
+                              w.l1, w.b1, T, ring);
+  lstm_layer<kH2, 2, 0, 4, S>(A, kLdL1, kG, SG, kLdX, s_step, B, kLdL2,
+                              w.l2, w.b2, T, ring);
+  lstm_layer<kH3, 8, 4, 8, S>(B, kLdL2, kG, SG, kLdX, s_step, A, kLdL3,
+                              w.l3, w.b3, T, ring);
+  lstm_layer<kH4, 16, 0, 4, S>(A, kLdL3, kG, SG, kLdX, s_step, B, kLdL4,
+                               w.l4, w.b4, T, ring);
 
   // d. the heads over the 16T (t, window) rows of layer 4's output
   const int M = kG * T;
@@ -883,6 +551,126 @@ stack_full_kernel(FullPair wp, const bf16* __restrict__ sig,
 }
 
 template <int S>
+__global__ void __launch_bounds__(kThreads, 1)
+stack_full_kernel(FullPair wp, const bf16* __restrict__ sig,
+                  const float* __restrict__ feats, int n_p, int T,
+                  int w_valid, int n_windows, float* __restrict__ logits,
+                  float* __restrict__ probs) {
+  const int m = blockIdx.y;
+  const FullWeights& w = wp.m[m];
+  const int w0 = blockIdx.x * kG;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gq = (tid & 31) >> 2, tq = tid & 3;
+  extern __shared__ uint4 smem_u4[];
+  bf16* A = reinterpret_cast<bf16*>(smem_u4);              // [T][16][kLdL3]
+  bf16* B = A + (size_t)T * kG * kLdL3;                     // [T][16][kLdL2]
+  bf16* S64 = B + (size_t)T * kG * kLdL2;                   // [kRows][kLdX]
+  bf16* FB = S64 + kRows * kLdX;                            // [kRows][kLdF]
+  float* FS = reinterpret_cast<float*>(FB + kRows * kLdF);  // [kRows][6]
+  bf16* ring = reinterpret_cast<bf16*>(FS + kRows * 6) + (size_t)warp * S * kTile;
+  // the conv branch's scratch, in A (and B at small T) before layer 1
+  bf16* X = A;                                              // [kRows][kLdX]
+  bf16* Z1 = X + kRows * kLdX;                              // [kRows][kLdZ]
+  bf16* Z2 = Z1 + kRows * kLdZ;                             // [kRows][kLdZ]
+
+  // a. stage the rows
+  for (int e = tid; e < kRows * 8; e += kThreads) {
+    const int r = e >> 3, q = e & 7, row = w0 + r;
+    bf16* dst = X + r * kLdX + q * 8;
+    if (row < n_p) cp_async16(dst, sig + (size_t)row * kQP + q * 8);
+    else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int e = tid; e < kRows * 3; e += kThreads) {
+    const int r = e / 3, q = e % 3, row = w0 + r;
+    float* dst = FS + r * 6 + q * 2;
+    if (row < n_p) {
+      cp_async8(dst, feats + (size_t)row * 6 + q * 2);
+    } else {
+      dst[0] = 0.0f;
+      dst[1] = 0.0f;
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // signal columns 50..63 are not the model's; features to bf16, k padded
+  for (int e = tid; e < kRows * (kQP - kQ); e += kThreads)
+    X[(e / (kQP - kQ)) * kLdX + kQ + e % (kQP - kQ)] = __float2bfloat16_rn(0.0f);
+  for (int e = tid; e < kRows * 16; e += kThreads) {
+    const int r = e >> 4, k = e & 15;
+    FB[r * kLdF + k] = __float2bfloat16_rn(k < 6 ? FS[r * 6 + k] : 0.0f);
+  }
+  __syncthreads();
+
+  // b. the conv branch, per row
+  dense_tiles<4>(X, kLdX, 2, w.cw1, kConvNT, ReluBf16{Z1, kLdZ, w.cb1});
+  __syncthreads();
+  dense_tiles<25>(Z1, kLdZ, 2, w.cw2, kConvNT, ReluBf16{Z2, kLdZ, w.cb2});
+  __syncthreads();
+  {  // s64 = bf16((z2 @ cc + x @ ce) + cbias): n8 tile = warp
+    float a[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    float x[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    tile_mma<25>(Z2, kLdZ, 0, 2, w.cc + (size_t)warp * 25 * 32, a);
+    tile_mma<4>(X, kLdX, 0, 2, w.ce + (size_t)warp * 4 * 32, x);
+    const int col = warp * 8 + 2 * tq;
+    const float2 b = __ldg(reinterpret_cast<const float2*>(w.cbias + col));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * i + gq;
+      put_bf16x2(S64 + r * kLdX + col, (a[i][0] + x[i][0]) + b.x,
+                 (a[i][1] + x[i][1]) + b.y);
+      put_bf16x2(S64 + (r + 8) * kLdX + col, (a[i][2] + x[i][2]) + b.x,
+                 (a[i][3] + x[i][3]) + b.y);
+    }
+  }
+  __syncthreads();
+
+  // c. and d.: window w's step t reads base row w + t
+  stack_core<S>(w.core, A, B, FB, 1, S64, 1, T, ring, m, w0, w_valid,
+                n_windows, logits, probs);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads, 1)
+stack_windows_kernel(CorePair wp, const float* __restrict__ feats,
+                     const float* __restrict__ sig, int n_win, int T,
+                     float* __restrict__ logits, float* __restrict__ probs) {
+  const int m = blockIdx.y;
+  const int w0 = blockIdx.x * kG;
+  const int nv = min(kG, n_win - w0);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  extern __shared__ uint4 smem_u4[];
+  bf16* A = reinterpret_cast<bf16*>(smem_u4);              // [T][16][kLdL3]
+  bf16* B = A + (size_t)T * kG * kLdL3;                     // [T][16][kLdL2]
+  bf16* SG = B + (size_t)T * kG * kLdL2;                    // [T][16][kLdX]
+  bf16* ring = SG + (size_t)T * kG * kLdX + (size_t)warp * S * kTile;
+  bf16* F = A + (size_t)T * kG * kLdL1;                     // [T][16][kLdF]
+
+  // the conv outputs of model m (16 float4 per (window, t), contiguous
+  // over the block) and the features, as bf16 rows [t][window]
+  const float4* sm =
+      reinterpret_cast<const float4*>(sig + ((size_t)m * n_win + w0) * T * kQP);
+  for (int e = tid; e < kG * T * 16; e += kThreads) {
+    const int r = e / (T * 16), t = (e >> 4) % T, q = e & 15;
+    const float4 v = r < nv ? __ldg(sm + e) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    bf16* dst = SG + ((size_t)t * kG + r) * kLdX + 4 * q;
+    put_bf16x2(dst, v.x, v.y);
+    put_bf16x2(dst + 2, v.z, v.w);
+  }
+  for (int e = tid; e < kG * T * 16; e += kThreads) {
+    const int r = e / (T * 16), t = (e >> 4) % T, k = e & 15;
+    const float v = r < nv && k < 6 ? __ldg(feats + ((size_t)(w0 + r) * T + t) * 6 + k)
+                                    : 0.0f;
+    F[((size_t)t * kG + r) * kLdF + k] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+
+  // c. and d.: window w's step t reads its own row t
+  stack_core<S>(wp.m[m], A, B, F, kG, SG, kG, T, ring, m, w0, n_win, n_win,
+                logits, probs);
+}
+
+template <int S>
 int launch_full(const FullPair& wp, const bf16* sig, const float* feats,
                 int n_p, int T, int w_valid, int n_windows, float* logits,
                 float* probs, size_t smem, cudaStream_t stream) {
@@ -891,40 +679,67 @@ int launch_full(const FullPair& wp, const bf16* sig, const float* feats,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w_valid + kG - 1) / kG, 2);
-  stack_full_kernel<S><<<grid, kFullThreads, smem, stream>>>(
+  stack_full_kernel<S><<<grid, kThreads, smem, stream>>>(
       wp, sig, feats, n_p, T, w_valid, n_windows, logits, probs);
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_windows(const CorePair& wp, int n_models, const float* feats,
+                   const float* sig, int n_win, int T, float* logits,
+                   float* probs, cudaStream_t stream) {
+  const size_t smem = (size_t)T * kG * (kLdL3 + kLdL2 + kLdX) * sizeof(bf16) +
+                      S * kRingSlot;
+  cudaError_t err = cudaFuncSetAttribute(
+      stack_windows_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n_win + kG - 1) / kG, n_models);
+  stack_windows_kernel<S><<<grid, kThreads, smem, stream>>>(
+      wp, feats, sig, n_win, T, logits, probs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// w: WINDOWS_ORDER of ops/reviser_kernel.py (wi1, b1, wi3s, then
-// STACK_ORDER), each stacked over n_models (1 or 2) models. feats f32
-// [n_win, T, 6], sig f32 [n_models, n_win, T, 64]; logits f32
-// [n_models, n_win, 6], probs f32 [n_models, n_win] or null.
+// The weight-ring slots per warp that nr_stack_windows takes at T: the most
+// of 8, 6 or 4 that fit beside the layer outputs and the staged conv
+// outputs; 0 if none fits (T > 13). The wrapper asks this, so the layout
+// is decided here only.
+extern "C" int nr_stack_windows_ring_slots(int T) {
+  if (T < 1) return 0;
+  const size_t fixed = (size_t)T * kG * (kLdL3 + kLdL2 + kLdX) * sizeof(bf16);
+  for (int s = 8; s >= 4; s -= 2)
+    if (fixed + s * kRingSlot <= kMaxSmem) return s;
+  return 0;
+}
+
+// w: the CORE_ORDER pointers (ops/reviser_kernel.py) of model 0, then (with
+// n_models = 2) those of model 1. feats f32 [n_win, T, 6], sig f32
+// [n_models, n_win, T, 64] (16-byte aligned); logits f32 [n_models, n_win,
+// 6], probs f32 [n_models, n_win] or null.
 extern "C" int nr_stack_windows(const void* const* w, int n_models,
                                 const float* feats, const float* sig,
                                 int n_win, int T, float* logits, float* probs,
                                 cudaStream_t stream) {
-  if (n_models < 1 || n_models > 2 || n_win < 1) return (int)cudaErrorInvalidValue;
-  WindowsArgs wa = {};
-  for (int m = 0; m < n_models; ++m) {
-    wa.p[m] = PreWeights{(const bf16*)w[0] + (size_t)m * 6 * 8 * kH1,
-                         (const float*)w[1] + (size_t)m * 8 * kH1,
-                         (const bf16*)w[2] + (size_t)m * 64 * 8 * kH3};
-    wa.s[m] = stack_weights_of(w + 3, m, T);
+  if (n_models < 1 || n_models > 2 || n_win < 1)
+    return (int)cudaErrorInvalidValue;
+  CorePair wp = {};
+  for (int m = 0; m < n_models; ++m)
+    wp.m[m] = core_weights_of(w + m * kCoreArgs);
+  switch (nr_stack_windows_ring_slots(T)) {
+    case 8:
+      return launch_windows<8>(wp, n_models, feats, sig, n_win, T, logits,
+                               probs, stream);
+    case 6:
+      return launch_windows<6>(wp, n_models, feats, sig, n_win, T, logits,
+                               probs, stream);
+    case 4:
+      return launch_windows<4>(wp, n_models, feats, sig, n_win, T, logits,
+                               probs, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)T * (256 + 192) * kG * sizeof(bf16);
-  // T >= 2 so the heads' f32 scratch (~11 KB) fits in buffer A
-  if (T < 2 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      stack_windows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n_win + kG - 1) / kG, n_models);
-  stack_windows_kernel<<<grid, kStackThreads, smem, stream>>>(
-      wa, feats, sig, n_win, T, logits, probs);
-  return (int)cudaGetLastError();
 }
 
 // w: the FULL_ORDER pointers (ops/reviser_kernel.py) of model 0, then those
@@ -946,24 +761,16 @@ extern "C" int nr_stack_full(const void* const* w, const bf16* sig,
     wp.m[m] = FullWeights{
         (const uint2*)p[0], (const float*)p[1], (const uint2*)p[2],
         (const float*)p[3], (const uint2*)p[4], (const uint2*)p[5],
-        (const float*)p[6],
-        (const bf16*)p[7], (const float*)p[8], (const bf16*)p[9],
-        (const float*)p[10], (const bf16*)p[11], (const float*)p[12],
-        (const bf16*)p[13], (const float*)p[14],
-        (const uint2*)p[15], (const float*)p[16], (const uint2*)p[17],
-        (const float*)p[18], (const uint2*)p[19], (const float*)p[20],
-        (const bf16*)p[21], (const float*)p[22], (const bf16*)p[23],
-        (const float*)p[24]};
+        (const float*)p[6], core_weights_of(p + kConvArgs)};
   }
   const size_t fixed = (size_t)T * kG * (kLdL3 + kLdL2) * sizeof(bf16) +
                        (size_t)kRows * (kLdX + kLdF) * sizeof(bf16) +
                        (size_t)kRows * 6 * sizeof(float);
-  const size_t ring_slot = (size_t)(kFullThreads / 32) * kTile * sizeof(bf16);
-  if (fixed + 8 * ring_slot <= kMaxSmem)
+  if (fixed + 8 * kRingSlot <= kMaxSmem)
     return launch_full<8>(wp, sig, feats, n_p, T, w_valid, n_windows, logits,
-                          probs, fixed + 8 * ring_slot, stream);
-  if (fixed + 6 * ring_slot <= kMaxSmem)
+                          probs, fixed + 8 * kRingSlot, stream);
+  if (fixed + 6 * kRingSlot <= kMaxSmem)
     return launch_full<6>(wp, sig, feats, n_p, T, w_valid, n_windows, logits,
-                          probs, fixed + 6 * ring_slot, stream);
+                          probs, fixed + 6 * kRingSlot, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,16 +10,19 @@
 // Lanes 50..63 and rows at or past rows_valid are zero.
 //
 // What bounds it on this card: bytes. It does ~2 flops per output element
-// and moves ~128 B of output per row plus the ~10 signal samples per row the
-// windows overlap on; at 3.35 TB/s a 196,736-row batch is a few microseconds
-// of traffic, so launch overhead and L2 latency of the overlapping 50-sample
-// reads dominate. The design does the simplest thing that keeps traffic
-// minimal: one thread per output element, consecutive threads on
-// consecutive lanes of a row, so signal reads of a warp fall in one or two
-// 128-byte lines and the bf16 stores coalesce into 128-byte rows. The TPU
-// kernel's tricks (reversed signal, Toeplitz roll, one-hot MXU gather,
-// 1024-aligned chunk DMA) exist for the TPU's tiled vector unit and are
-// dropped.
+// and moves 128 B of output per row plus ~10 int16 signal samples per row
+// (neighbouring windows overlap): a 196,736-row batch is ~32 MB, 9.5 us at
+// 3.35 TB/s. So the design is about the stores and the per-row work: one
+// thread per 8 lanes of a row, which reads its row's scalars (pos0, vlen,
+// read_id) once and at once, then its 8 samples and the read's shift and
+// scale, and writes its 8 lanes as one 16-byte store; a warp writes 4 whole
+// rows, 512 contiguous bytes. Pieces inside the signal buffer skip the
+// per-sample clamp, pieces inside the window the per-lane test, so most
+// threads do 8 loads, 8 divisions and one store. Lanes 48..55 hold the
+// last two samples and six zeros, lanes 56..63 are zero without a load.
+// The TPU kernel's
+// tricks (reversed signal, Toeplitz roll, one-hot MXU gather, 1024-aligned
+// chunk DMA) exist for the TPU's tiled vector unit and are dropped.
 //
 // Exactness: this file must be compiled without --use_fast_math, so that '/'
 // is IEEE div.rn.f32; the output is then bit-identical to the plain version
@@ -31,8 +34,10 @@
 
 namespace {
 
-constexpr int kQ = 50;   // window samples per base
-constexpr int kQP = 64;  // padded output row width
+constexpr int kQ = 50;     // window samples per base
+constexpr int kQP = 64;    // padded output row width
+constexpr int kPiece = 8;  // lanes per thread: one 16-byte store
+constexpr int kPieces = kQP / kPiece;
 
 __global__ void window_gather_kernel(const int16_t* __restrict__ sig, int s_cap,
                                      const int* __restrict__ pos0,
@@ -43,24 +48,54 @@ __global__ void window_gather_kernel(const int16_t* __restrict__ sig, int s_cap,
                                      int rows_valid, int n_rows,
                                      __nv_bfloat16* __restrict__ out) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_rows * kQP) return;
-  const int row = idx / kQP;
-  const int q = idx % kQP;
-  float v = 0.0f;
-  if (row < rows_valid && q < kQ) {
-    const int vl = vlen[row] & 63;
+  if (idx >= n_rows * kPieces) return;
+  const int row = idx / kPieces;
+  const int q0 = (idx % kPieces) * kPiece;
+  uint32_t w[kPiece / 2] = {0u, 0u, 0u, 0u};   // bf16 pairs; +0.0 is 0
+  if (row < rows_valid && q0 < kQ) {
+    // the row's scalars, all at once; then the samples and the read's
+    // normalizers, which depend only on them
+    const int vr = __ldg(vlen + row), rr = __ldg(read_id + row);
+    const int p = __ldg(pos0 + row);
+    const float sh = __ldg(shift + (rr & 255)), sc = __ldg(scale + (rr & 255));
+    float x[kPiece];
+    if (p >= -q0 && p <= s_cap - kPiece - q0) {
+      // samples p + q0 .. + 7 all inside the buffer: no clamp
+      const int16_t* sp = sig + (p + q0);
+#pragma unroll
+      for (int j = 0; j < kPiece; ++j) x[j] = (float)__ldg(sp + j);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPiece; ++j) {
+        long long pj = (long long)p + q0 + j;
+        pj = pj < 0 ? 0 : (pj > s_cap - 1 ? s_cap - 1 : pj);
+        x[j] = (float)__ldg(sig + pj);
+      }
+    }
+    const int vl = vr & 63;
     // floor((kQ - vl + 1) / 2); kQ - vl + 1 >= -12, so shift right by one
     // (arithmetic) is the floor division
     const int left = (kQ - vl + 1) >> 1;
-    if (q >= left && q < left + vl) {
-      const int rid = read_id[row] & 255;
-      long long p = (long long)pos0[row] + q;
-      p = p < 0 ? 0 : (p > s_cap - 1 ? s_cap - 1 : p);
-      const float x = (float)sig[p];
-      v = (x - shift[rid]) / scale[rid];
+    // the lanes of this piece inside [left, left + vl) and below kQ
+    const int lo = max(left, q0);
+    const int hi = min(min(left + vl, kQ), q0 + kPiece);
+    float v[kPiece];
+    if (lo == q0 && hi == q0 + kPiece) {
+#pragma unroll
+      for (int j = 0; j < kPiece; ++j) v[j] = (x[j] - sh) / sc;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPiece; ++j)
+        v[j] = q0 + j >= lo && q0 + j < hi ? (x[j] - sh) / sc : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kPiece / 2; ++j) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&b);
     }
   }
-  out[idx] = __float2bfloat16_rn(v);
+  *reinterpret_cast<uint4*>(out + (size_t)row * kQP + q0) =
+      make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 }  // namespace
@@ -71,7 +106,7 @@ extern "C" int nr_window_gather(const int16_t* sig, int s_cap, const int* pos0,
                                 int rows_valid, int n_rows,
                                 __nv_bfloat16* out, cudaStream_t stream) {
   const int threads = 256;
-  const long long total = (long long)n_rows * kQP;
+  const long long total = (long long)n_rows * kPieces;
   const int blocks = (int)((total + threads - 1) / threads);
   window_gather_kernel<<<blocks, threads, 0, stream>>>(
       sig, s_cap, pos0, vlen, read_id, shift, scale, rows_valid, n_rows, out);

@@ -115,12 +115,16 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._entries: dict = {}
 
     def launch(self, entry: str, *args) -> None:
-        fn = getattr(load(self.source), entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(a._type_) if isinstance(a, ctypes.Array)
-                       else type(a) for a in args]
+        fn = self._entries.get(entry)
+        if fn is None:   # bound once: the types are those of the first call
+            fn = getattr(load(self.source), entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(a._type_) if isinstance(a, ctypes.Array)
+                           else type(a) for a in args]
+            self._entries[entry] = fn
         code = fn(*args)
         if code != 0:
             raise KernelLaunchError(

@@ -26,9 +26,11 @@ The pre-gathered-window entry ``stack_logits_multi`` replaces the TPU kernel
 ``_kernel`` (``nanoreviser_tpu/ops/reviser_kernel.py:251``, entries
 ``stack_logits_multi`` ``:611`` and ``stack_logits_pallas`` ``:749``): each
 window brings its own T rows of features and conv-branch output, so nothing
-is shared between windows. One kernel, ``stack_windows``, runs the layer-1
-and layer-3-signal projections per (window, t) and then the stack core and
-heads of ``stack_heads_plain``, for 1 or 2 models, on f32 FMAs.
+is shared between windows. One kernel, ``stack_windows``, stages those rows
+and runs ``stack_full``'s stack core on them (the layer-1 and
+layer-3-signal projections per (window, t), the 4 layers and the heads of
+``stack_heads_plain``), for 1 or 2 models, from the same fragment-packed
+weights.
 
 Rounding follows the TPU kernel: matmul operands are bf16 with f32
 accumulation; z1, z2 and s64 are rounded to bf16 (``:339-348``); p1/p3
@@ -37,11 +39,12 @@ stay f32; h is rounded to bf16 after every step while c stays f32
 the next product. Model 2 has 5 classes; its 6th logit carries bias -1e9 so
 it never wins.
 
-Weights are packed unpadded, row-major, in the layout the plain versions and
-``stack_windows`` read: each matrix [in, out], LSTM gate columns i,f,c,o of
-one direction contiguous, the two directions side by side where one
-projection produces both (``wi1``, ``b1``, ``wi3s``) and on a leading
-direction axis otherwise; both models stacked on a leading model axis.
+Weights are packed unpadded, row-major, in the layout the plain versions
+read and ``pack_full_weights`` packs from: each matrix [in, out], LSTM gate
+columns i,f,c,o of one direction contiguous, the two directions side by
+side where one projection produces both (``wi1``, ``b1``, ``wi3s``) and on
+a leading direction axis otherwise; both models stacked on a leading model
+axis.
 
 Two plain versions sit beside the kernels: the f32 one (the CPU engine's
 path, held against the JAX f32 model) and the bf16-operand one (held
@@ -66,7 +69,7 @@ Q = 50                              # signal samples per base row
 QP = 64                             # padded row width of the gathered signal
 PAD_LOGIT_BIAS = -1e9
 
-# stack_full's fragment-packed products (pack_full_weights), per model:
+# the kernels' fragment-packed products (pack_full_weights), per model:
 # [n8 tiles, k16 tiles, 32 lanes, 4] for a product, [directions, unit
 # groups of 8, k16 tiles of the segments, gate pairs (i f | c o), 32 lanes,
 # 2 gates x 4] for the gate product of an LSTM layer
@@ -81,14 +84,14 @@ FULL_SHAPES = {
 MATRICES = ("cw1", "cw2", "cc", "ce", "wi1", "wi3s", "wh1", "wi2", "wh2",
             "wi3", "wh3", "wi4", "wh4", "d1w", "d2w", "mow", "fw",
             "fow") + tuple(FULL_SHAPES)
-# the argument order of the C entries (csrc/reviser_stack.cu)
-STACK_ORDER = ("wh1", "wi2", "b2", "wh2", "wi3", "b3", "wh3", "wi4", "b4",
-               "wh4", "d1w", "d1b", "d2w", "d2b", "mow", "mob", "fw", "fb",
-               "fow", "fob")
-FULL_ORDER = ("cw1_f", "cb1", "cw2_f", "cb2", "cc_f", "ce_f", "cbias",
-              "l1_f", "b1", "l2_f", "b2", "l3_f", "b3", "l4_f", "b4",
+# the argument order of the C entries (csrc/reviser_stack.cu), per model:
+# the stack core's weights (all that nr_stack_windows reads), and before
+# them the conv branch's for nr_stack_full
+CONV_ORDER = ("cw1_f", "cb1", "cw2_f", "cb2", "cc_f", "ce_f", "cbias")
+CORE_ORDER = ("l1_f", "b1", "l2_f", "b2", "l3_f", "b3", "l4_f", "b4",
               "d1_f", "d1b", "d2_f", "d2b", "mo_f", "mob",
               "fw", "fb", "fow", "fob")
+FULL_ORDER = CONV_ORDER + CORE_ORDER
 
 
 def stack_shapes(t_len: int) -> dict:
@@ -262,8 +265,8 @@ def _gate_fragments(segments, hidden: int) -> np.ndarray:
 
 
 def pack_full_weights(ws: dict) -> dict:
-    """``stack_full``'s fragment-packed products (``FULL_SHAPES``, stacked
-    over the 2 models, f32) from the stacked row-major weights (numpy or
+    """The kernels' fragment-packed products (``FULL_SHAPES``, stacked
+    over the models, f32) from the stacked row-major weights (numpy or
     tensors, f32 or bf16). A pure permutation with zero padding, so rounding
     to bf16 before or after packing gives the same bits. Each LSTM layer's
     gate product per direction: its input segments, then wh -- layer 1 (the
@@ -299,8 +302,10 @@ def pack_full_weights(ws: dict) -> dict:
 
 def kernel_weights(ws: dict, device) -> dict:
     """The kernels' weights on ``device`` from the stacked numpy weights:
-    the row-major set (bf16 matrices, f32 biases) plus ``stack_full``'s
-    fragment-packed products. Made once per engine."""
+    the row-major set (bf16 matrices, f32 biases) plus the
+    fragment-packed products that both kernels read. Made once per
+    engine; a one-model slice ``{k: v[m]}`` equals packing model m
+    alone."""
     out = weights_to_device(ws, device)
     out.update(weights_to_device(pack_full_weights(ws), device))
     return out
@@ -488,7 +493,7 @@ def _weight_ptrs(ws: dict, order, t_len: int, n_models: int = 2,
     shapes = {**stack_shapes(t_len), **FULL_SHAPES}
     for k in order:
         if k not in ws:
-            raise ValueError(f"weight {k} missing (stack_full's packed weights "
+            raise ValueError(f"weight {k} missing (the kernels' packed weights "
                              f"come from kernel_weights)")
         v = ws[k]
         want = torch.bfloat16 if k in MATRICES else torch.float32
@@ -551,26 +556,39 @@ def stack_logits_full(ws: dict, sig: torch.Tensor, feats: torch.Tensor, *,
 
 def stack_full_fetch_bytes(t_len: int) -> int:
     """Weight bytes one ``stack_full`` block fetches from L2 for one model,
-    by the kernel's schedule: every step streams its layer's packed gate
-    products and reads their biases again; the conv products are read once;
-    each head product once per pair of m16 tiles, ceil(T/2) times; the
-    feature and final weights once."""
+    by the kernel's schedule: the conv products once, then the stack core's
+    (``stack_windows_fetch_bytes``)."""
+    nbytes = lambda k: 2 * math.prod(FULL_SHAPES[k])
+    conv = (sum(nbytes(k) for k in ("cw1_f", "cw2_f", "cc_f", "ce_f"))
+            + 4 * (400 + 400 + 64))
+    return conv + stack_windows_fetch_bytes(t_len)
+
+
+def stack_windows_fetch_bytes(t_len: int) -> int:
+    """Weight bytes the stack core of one block fetches from L2 for one
+    model (all of a ``stack_windows`` block's): every step streams its
+    layer's packed gate products and reads their biases again; each head
+    product once per pair of m16 tiles, ceil(T/2) times; the feature and
+    final weights once."""
     nbytes = lambda k: 2 * math.prod(FULL_SHAPES[k])
     lstm = (sum(nbytes(k) for k in ("l1_f", "l2_f", "l3_f", "l4_f"))
             + 4 * 2 * 4 * (H1 + H2 + H3 + H4))
-    conv = (sum(nbytes(k) for k in ("cw1_f", "cw2_f", "cc_f", "ce_f"))
-            + 4 * (400 + 400 + 64))
     heads = ((nbytes("d1_f") + nbytes("d2_f") + nbytes("mo_f")) * ((t_len + 1) // 2)
              + 4 * (128 + 32 + NB_MAX) + 2 * t_len * NB_MAX * 16 + 4 * 16
              + 2 * 16 * NB_MAX + 4 * NB_MAX)
-    return t_len * lstm + conv + heads
+    return t_len * lstm + heads
 
 
 # --------------------------------------------- the pre-gathered-window entry
 
-# the argument order of nr_stack_windows: the per-(window, t) projections'
-# weights, then the stack core's
-WINDOWS_ORDER = ("wi1", "b1", "wi3s") + STACK_ORDER
+
+def windows_ring_slots(t_len: int) -> int:
+    """Weight-ring slots per warp that ``stack_windows`` takes at T, as the
+    kernel's library decides them (``nr_stack_windows_ring_slots``, beside
+    the shared-memory layout it depends on); 0 where no ring fits. Loads,
+    and if needed builds, the library."""
+    lib = build.load(STACK_WINDOWS.source)
+    return int(lib.nr_stack_windows_ring_slots(build.c_int(t_len)))
 
 
 def stack_logits_multi(ws: dict, feats: torch.Tensor, sig_outs: torch.Tensor,
@@ -581,7 +599,8 @@ def stack_logits_multi(ws: dict, feats: torch.Tensor, sig_outs: torch.Tensor,
     returns (logits, max prob [M, B]). Counterpart of the TPU entry
     ``stack_logits_multi`` (``nanoreviser_tpu/ops/reviser_kernel.py:611``);
     any B. CUDA tensors launch ``stack_windows`` (one launch for all
-    models); CPU tensors take the bf16 plain version."""
+    models; ``ws`` from ``kernel_weights``, T <= 13); CPU tensors take the
+    bf16 plain version."""
     if feats.device.type == "cpu":
         logits, probs = stack_windows_plain(ws, feats, sig_outs, t_len=t_len,
                                             want_probs=want_probs, bf16=True)
@@ -597,12 +616,17 @@ def stack_logits_multi(ws: dict, feats: torch.Tensor, sig_outs: torch.Tensor,
                 or not arr.is_contiguous()):
             raise ValueError(f"{name} must be contiguous f32 {list(shape)}, got "
                              f"{arr.dtype} {tuple(arr.shape)}")
+    if sig_outs.data_ptr() % 16:
+        raise ValueError("sig_outs must be 16-byte aligned")
+    if not windows_ring_slots(t_len):
+        raise ValueError(f"stack_windows does not fit T={t_len} in shared "
+                         f"memory (no weight ring fits beside its rows)")
     dev = feats.device
     logits = torch.empty((n_models, n_win, NB_MAX), dtype=torch.float32, device=dev)
     probs = (torch.empty((n_models, n_win), dtype=torch.float32, device=dev)
              if want_probs else None)
     if n_win:
-        ptrs = _weight_ptrs(ws, WINDOWS_ORDER, t_len, n_models)
+        ptrs = _weight_ptrs(ws, CORE_ORDER, t_len, n_models, per_model=True)
         STACK_WINDOWS.launch(
             "nr_stack_windows",
             build.ptr_array(ptrs), build.c_int(n_models), build.c_ptr(feats),
@@ -617,8 +641,9 @@ def stack_logits_single(w: dict, feats: torch.Tensor, sig_out: torch.Tensor,
                         *, t_len: int, want_probs: bool = False):
     """Single-model wrapper (counterpart of the TPU entry
     ``stack_logits_pallas``, ``nanoreviser_tpu/ops/reviser_kernel.py:749``):
-    ``w`` holds one model's packed weights without the model axis; feats
-    [B, T, 6], sig_out [B, T, 64] -> logits [B, 6] (+ max prob [B])."""
+    ``w`` holds one model's weights without the model axis (for the card,
+    ``{k: v[m]}`` of ``kernel_weights``); feats [B, T, 6], sig_out [B, T,
+    64] -> logits [B, 6] (+ max prob [B])."""
     ws = {k: v[None] for k, v in w.items()}
     out = stack_logits_multi(ws, feats, sig_out[None], t_len=t_len,
                              want_probs=want_probs)

@@ -50,7 +50,8 @@ def window_gather_plain(sig, pos0, vlen, read_id, shift, scale, rows_valid: int,
 
 def window_gather(sig, pos0, vlen, read_id, shift, scale, rows_valid: int):
     """bf16 [N, 64] window rows. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one thread per output element)."""
+    tensors launch the kernel (one thread per 8 lanes of a row, one 16-byte
+    store each)."""
     if sig.device.type == "cpu":
         return window_gather_plain(sig, pos0, vlen, read_id, shift, scale,
                                    rows_valid)

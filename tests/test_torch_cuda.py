@@ -4,13 +4,15 @@ These tests need an NVIDIA GPU with nvcc and skip without one. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-They hold the window gather bit-exact against its plain version, the two
-reviser-stack kernels against the bf16 plain versions (max |dlogit| <= 0.05,
-argmax agreement >= 0.995; stack_full at T = 11 and 13 over a w_valid that
-ends inside a block of 16 windows, with the windows past it left at zero,
-and w_valid = 0; the pre-gathered-window kernel also for one model,
-equal to model 1 of two, and for batches that end inside a block of 16
-windows), and the engine's labels on the card against the
+They hold the window gather bit-exact against its plain version (rows of
+vlen 0, 50..63 and masked values, rows_valid not a multiple of 4, lanes
+50..63 zero), the two reviser-stack kernels against the bf16 plain versions
+(max |dlogit| <= 0.05, argmax agreement >= 0.995; both at T = 11 and 13;
+stack_full over a w_valid that ends inside a block of 16 windows, with the
+windows past it left at zero, and w_valid = 0; the pre-gathered-window
+kernel from kernel_weights, also for one model, equal to model 1 of two,
+and for batches that end inside a block of 16 windows), and the engine's
+labels on the card against the
 CPU engine's f32 labels (agreement >= 0.98), at small sizes; and they check
 that the engine's device step never makes the host wait for the card.
 """
@@ -50,16 +52,28 @@ def test_gather_kernel_bit_exact():
     rng = np.random.default_rng(0)
     n, s = 1000, 20000
     sig = torch.tensor(rng.integers(-2000, 2000, s), dtype=torch.int16, device=dev)
-    pos0 = torch.tensor(np.sort(rng.integers(-30, s, n)), dtype=torch.int32, device=dev)
-    vlen = torch.tensor(rng.integers(1, 51, n), dtype=torch.int32, device=dev)
+    p0 = np.sort(rng.integers(-30, s, n))
+    # pieces that cross either end of the buffer take the clamped path
+    p0[:4], p0[-4:] = [-60, -49, -8, -1], [s - 60, s - 49, s - 10, s - 1]
+    pos0 = torch.tensor(p0, dtype=torch.int32, device=dev)
+    # vlen 1..50, then rows of vlen 0 and of 50..63 and masked values (& 63)
+    vl = rng.integers(1, 51, n)
+    vl[::7] = 0
+    vl[3::11] = rng.integers(50, 64, len(vl[3::11]))
+    vl[5::13] = rng.integers(64, 200, len(vl[5::13]))
+    vlen = torch.tensor(vl, dtype=torch.int32, device=dev)
     rid = torch.tensor(rng.integers(0, 7, n), dtype=torch.int32, device=dev)
     shift = torch.tensor(rng.uniform(400, 500, 256), dtype=torch.float32, device=dev)
     scale = torch.tensor(rng.uniform(5, 50, 256), dtype=torch.float32, device=dev)
-    args = (sig, pos0, vlen, rid, shift, scale, 900)
-    got = window_gather(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, window_gather_plain(*args))
-    assert not got[900:].any()
+    for rows_valid in (900, 901, 998, n):          # a warp writes 4 rows
+        args = (sig, pos0, vlen, rid, shift, scale, rows_valid)
+        got = window_gather(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, window_gather_plain(*args))
+        assert not got[rows_valid:].any() and not got[:, 50:].any()
+        assert not got[:rows_valid][vlen[:rows_valid] == 0].any()
+        full = (vlen[:rows_valid] & 63) >= 50
+        assert bool(full.any()) and bool((got[:rows_valid][full][:, :50] != 0).all())
 
 
 @pytest.mark.parametrize("t", [11, 13])
@@ -95,24 +109,27 @@ def test_stack_full_matches_bf16_plain(t):
     assert not z.any() and not zp.any() and z.shape == (2, n_win, 6)
 
 
-def _window_inputs(dev, n, seed):
+def _window_inputs(dev, n, seed, t=11):
     rng = np.random.default_rng(seed)
-    feats = torch.tensor(rng.normal(0.5, 0.3, (n, 11, 6)), dtype=torch.float32,
+    feats = torch.tensor(rng.normal(0.5, 0.3, (n, t, 6)), dtype=torch.float32,
                          device=dev)
-    sig = torch.tensor(rng.normal(0, 1, (2, n, 11, 64)), dtype=torch.float32,
+    sig = torch.tensor(rng.normal(0, 1, (2, n, t, 64)), dtype=torch.float32,
                        device=dev)
     return feats, sig
 
 
-def test_windows_kernel_matches_bf16_plain():
+@pytest.mark.parametrize("t", [11, 13])
+def test_windows_kernel_matches_bf16_plain(t):
     dev = _card()
-    ws = rk.weights_to_device(_weights(7), dev)
+    ws = rk.kernel_weights(_weights(7, t), dev)
     n = 700                                       # not a multiple of 16
-    feats, sig = _window_inputs(dev, n, 2)
-    lg, pr = rk.stack_logits_multi(ws, feats, sig, t_len=11, want_probs=True)
-    lp, pp = rk.stack_windows_plain(ws, feats, sig, t_len=11, want_probs=True,
+    feats, sig = _window_inputs(dev, n, 2, t)
+    before = rk.STACK_WINDOWS.launches
+    lg, pr = rk.stack_logits_multi(ws, feats, sig, t_len=t, want_probs=True)
+    lp, pp = rk.stack_windows_plain(ws, feats, sig, t_len=t, want_probs=True,
                                     bf16=True)
     torch.cuda.synchronize()
+    assert rk.STACK_WINDOWS.launches == before + 1
     for m, nc in enumerate((6, 5)):
         assert float((lg[m, :, :nc] - lp[m, :, :nc]).abs().max()) <= 0.05
         agree = (lg[m].argmax(-1) == lp[m].argmax(-1)).float().mean()
@@ -123,7 +140,7 @@ def test_windows_kernel_matches_bf16_plain():
 
 def test_windows_kernel_single_model_and_ragged_batches():
     dev = _card()
-    ws = rk.weights_to_device(_weights(8), dev)
+    ws = rk.kernel_weights(_weights(8), dev)
     for n in (5, 16, 33):                         # below, at and past a block
         feats, sig = _window_inputs(dev, n, n)
         both = rk.stack_logits_multi(ws, feats, sig, t_len=11)
@@ -134,6 +151,15 @@ def test_windows_kernel_single_model_and_ragged_batches():
         torch.cuda.synchronize()
         assert torch.equal(one, both[0])
         assert float((both[:, :, :5] - plain[:, :, :5]).abs().max()) <= 0.05
+    # the kernel reads the packed weights only, and has no ring for T > 13
+    assert [rk.windows_ring_slots(t) for t in (11, 13, 14)] == [8, 4, 0]
+    with pytest.raises(ValueError, match="kernel_weights"):
+        rk.stack_logits_multi(rk.weights_to_device(_weights(8), dev), feats, sig,
+                              t_len=11)
+    feats, sig = _window_inputs(dev, 5, 1, t=14)
+    with pytest.raises(ValueError, match="T=14"):
+        rk.stack_logits_multi(rk.kernel_weights(_weights(8, 14), dev), feats, sig,
+                              t_len=14)
 
 
 def _engine_inputs(tmp_path):

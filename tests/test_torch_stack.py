@@ -62,12 +62,16 @@ def test_pack_layout_matches_shapes():
     for k, shape in rk.stack_shapes(T).items():
         assert ws[k].shape == (2,) + shape, k
     assert set(rk.stack_shapes(T)) == set(ws)
-    # every row-major weight reaches a kernel: stack_full (packed or as is)
-    # or stack_windows
+    # every row-major weight reaches the kernels, packed or as is;
+    # stack_windows reads stack_full's weights less the conv branch's
     packed_from = {"cw1", "cw2", "cc", "ce", "wi1", "wi3s", "wh1", "wi2", "wh2",
                    "wi3", "wh3", "wi4", "wh4", "d1w", "d2w", "mow"}
     assert set(ws) == (set(rk.FULL_ORDER) - set(rk.FULL_SHAPES)) | packed_from
-    assert set(rk.WINDOWS_ORDER) <= set(ws)
+    # kernel_weights holds every weight stack_windows reads, in the type,
+    # shape and layout its C entry takes, one pointer per weight and model
+    ptrs = rk._weight_ptrs(rk.kernel_weights(ws, "cpu"), rk.CORE_ORDER, T,
+                           per_model=True)
+    assert len(set(ptrs)) == len(ptrs) == 2 * len(rk.CORE_ORDER)
     # model 2's padded class can never win
     assert ws["fob"][1, 5] == rk.PAD_LOGIT_BIAS and not ws["fow"][1, :, 5].any()
     # conv dense form equals the JAX package's
