@@ -2,17 +2,19 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --gather-only   # phases device, build and gather
+    python3 chip_smoke.py --cli-only      # device, build, gather, e2e's CLI runs
 
-``--gather-only`` times the window gather of whatever package sits beside
-this file, so a copy of it in an older checkout times that checkout's
-kernel the same way.
+``--gather-only`` times the window gather, and ``--cli-only`` the CLI
+runs of phase e2e, of whatever package sits beside this file, so a copy of
+it in an older checkout times that checkout the same way.
 
 Phases, each printing one JSON line:
 
 1. device  - a CUDA card is required (exit 2 without one); prints
              nvidia-smi's name and power limit.
 2. build   - compiles csrc/*.cu with nvcc (one process per source, in
-             parallel) and reports what ptxas says.
+             parallel) and the host library native/src/nanorev.cpp with
+             g++ beside them, and reports what ptxas says.
 3. gather  - packs one full-tier batch (196,608 windows) from synthetic
              reads, decodes it on the card, and holds the window-gather
              kernel bit-exact against its plain version on the card and on
@@ -47,14 +49,34 @@ Phases, each printing one JSON line:
              weight rings) on 500 seeded random windows against the bf16
              plain version (the same bars), and its time on as many windows
              as the T = 11 run.
-6. e2e     - writes 40 synthetic fast5 reads of ~10k bases, random weights
+6. host    - the host side on the card's host, on the 40 synthetic reads
+             of the gather phase: the usable CPUs and /dev/shm's size and
+             free bytes; per-read ms in one process of fast5 decode,
+             compact_read_numpy, the host library's compaction, numpy
+             encode_read, the library's encode and merge (random labels
+             from the seed); then a PrepPool at 1 worker and at the CLI's
+             worker count (min(8, CPUs)): its start-up seconds and its
+             reads/s over the 40 files listed 4 times (no device work).
+             Every pool WireRead must be byte-identical to
+             encode_read(compact_read_numpy(get_read_data(...))), and no
+             read may fall back from the library to numpy.
+7. e2e     - writes 40 synthetic fast5 reads of ~10k bases, random weights
              (the port's init + save_keras_weights), and runs the CLI in model
-             mode for fastq and fasta: one output file per read, no failed
-             read, exactly one window_gather and one stack_full launch per
-             batch (engine device step) and no other. Launch counts are
-             zeroed just before and read just after. A few reads are also
-             revised with emit="labels" on the card and on the CPU (plain
-             f32 path) and must agree.
+             mode (prep pool of 8 workers) for fastq and fasta: one output
+             file per read, no failed read, exactly one window_gather and
+             one stack_full launch per batch (engine device step) and no
+             other; prints the pool's start-up seconds beside reads/s, and
+             the CLI process's seconds waiting for prepared reads,
+             packing them into batches, submitting batches, waiting for
+             the device, merging and writing reads.
+             Launch counts are zeroed just before and read just after. A few
+             reads are also revised with emit="labels" on the card and on
+             the CPU (plain f32 path) and must agree. A third CLI run
+             (fasta) revises each read 10 times (400 links to the 40 files)
+             for a steady-state rate. Last, the CLI as two
+             processes on the one card (--num_processes 2, --merged_output,
+             --align center): the merged fasta must be byte-identical to a
+             one-process --merged_output run's.
 
 Then the kernel table line, nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
@@ -174,10 +196,20 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
+    import concurrent.futures as cf
+
     from nanoreviser_torch.ops import build
 
+    try:
+        from nanoreviser_torch.native import build as native_build
+    except ImportError:      # a checkout from before the host library
+        native_build = None
     t0 = time.time()
-    logs = build.build_all()
+    with cf.ThreadPoolExecutor(1) as pool:   # g++ beside the nvcc processes
+        host_lib = pool.submit(native_build.build) if native_build else None
+        logs = build.build_all()
+        if host_lib is not None:
+            host_lib.result()
     ptxas = {src: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln]
              for src, log in logs.items()}
@@ -594,10 +626,161 @@ def phase_windows(weights, fast5_dir: str, names: list, build_logs):
             "bound_by": bby, "library_ms": None}
 
 
-def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
+def _wire_identical(a, b) -> bool:
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_host(fast5_dir: str, names: list) -> dict:
+    """The host side of the serving path on the card's host: per-read stage
+    times in one process, and the prep pool's start-up and rate."""
+    import numpy as np
+
+    from nanoreviser_torch import native
+    from nanoreviser_torch.infer.hostpipe import PrepPool
+    from nanoreviser_torch.infer.merge import merge_revision
+    from nanoreviser_torch.infer.wire import encode_read
+    from nanoreviser_torch.io import get_read_data
+    from nanoreviser_torch.signal import host_prep
+
+    cpus = len(os.sched_getaffinity(0))
+    shm = os.statvfs("/dev/shm")
+
+    # per-read stage times, one process, each stage on every read in turn
+    paths = [os.path.join(fast5_dir, n) for n in names]
+    rng = np.random.default_rng(SEED)
+    stages = dict.fromkeys(("decode", "compact_numpy", "compact_native",
+                            "encode_numpy", "encode_native", "merge"), 0.0)
+    ref = []
+    fb0 = host_prep.native_fallbacks()
+    for p in paths:
+        t = time.perf_counter()
+        rd = get_read_data(p)
+        t1 = time.perf_counter()
+        c_np = host_prep.compact_read_numpy(rd)
+        t2 = time.perf_counter()
+        c = host_prep.compact_read(rd)
+        t3 = time.perf_counter()
+        w = encode_read(c)
+        t4 = time.perf_counter()
+        n, m = c.n_bases, c.n_samples
+        rows = {"sig8": m, "posd": n, "evf": n, "codes": n, "sig_esc_idx": m,
+                "sig_esc_delta": m, "dur_esc_idx": n, "dur_esc_f32": n}
+        out = {k: np.empty((rows.get(k, n), 4) if w else rows.get(k, n), dt)
+               for k, (dt, w) in native.ENCODE_OUT.items()}
+        t5 = time.perf_counter()
+        native.encode_wire_native(c, out)
+        t6 = time.perf_counter()
+        y1 = rng.choice(6, n - WINDOW, p=[0.85, 0.03, 0.03, 0.03, 0.03, 0.03])
+        y2 = rng.integers(0, 5, n - WINDOW)
+        t7 = time.perf_counter()
+        merge_revision(rd.bases, y1, y2, align="center", window=WINDOW,
+                       center_offset=(WINDOW - 1) // 2)
+        t8 = time.perf_counter()
+        for k, dt in zip(stages, (t1 - t, t2 - t1, t3 - t2, t4 - t3, t6 - t5, t8 - t7)):
+            stages[k] += dt
+        check(_wire_identical(w, encode_read(c_np)), "native compaction != numpy")
+        ref.append(w)
+    per_read_ms = {k: v * 1e3 / len(paths) for k, v in stages.items()}
+    check(host_prep.native_fallbacks() == fb0, "host library refused a read")
+
+    # the pool: start-up, then the 40 files listed 4 times, no device work
+    items = names * 4
+    pools = {}
+    for n_workers in sorted({1, min(8, cpus)}):
+        with PrepPool(n_workers) as pool:
+            start_s = pool.ready()
+            t0 = time.perf_counter()
+            n_items = 0
+            for k, (fn, wire, err) in enumerate(pool.stream(fast5_dir, items)):
+                check(err is None and fn == items[k], f"pool: {fn} failed: {err}")
+                check(_wire_identical(wire, ref[k % len(names)]),
+                      f"pool WireRead of {fn} != encode_read(compact_read_numpy)")
+                n_items += 1
+            secs = time.perf_counter() - t0
+            check(n_items == len(items), f"pool yielded {n_items} of {len(items)}")
+            check(pool.native_fallbacks == 0,
+                  f"{pool.native_fallbacks} native fallbacks in the pool")
+        pools[n_workers] = {"start_seconds": start_s, "seconds": secs,
+                            "reads_per_s": len(items) / secs}
+    info = {"phase": "host", "cpus": cpus, "dev_shm_bytes": shm.f_blocks * shm.f_frsize,
+            "dev_shm_free_bytes": shm.f_bavail * shm.f_frsize,
+            "reads": len(names),
+            "per_read_ms": per_read_ms, "pool_items": len(items),
+            "pool": pools, "native_fallbacks": 0, "wire_identical": True}
+    emit(info)
+    return info
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_process_merged(tmp: str, weights, fast5_dir: str) -> dict:
+    """Two CLI processes on the one card (--num_processes 2, --merged_output,
+    --align center); their merged fasta must equal one process's."""
+    from nanoreviser_torch.cli.reviser import main as cli_main
+
+    common = ["-d", fast5_dir, "-F", "fasta", "--revise_mode", "model",
+              "--device", "cuda", "--align", "center",
+              "--model1_predict_dir", weights[0], "--model2_predict_dir", weights[1]]
+    one = os.path.join(tmp, "merged_one")
+    rc = cli_main(common + ["-o", one, "--merged_output", os.path.join(one, "m.fasta"),
+                            "-e", os.path.join(tmp, "failed_one.txt")])
+    check(rc == 0, f"one-process merged run returned {rc}")
+    two = os.path.join(tmp, "merged_two")
+    coord = f"127.0.0.1:{_free_port()}"
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "nanoreviser_torch.cli.reviser", *common,
+         "-o", two, "--merged_output", os.path.join(two, "m.fasta"),
+         "-e", os.path.join(tmp, f"failed_two{k}.txt"), "--thread", "4",
+         "--coordinator_address", coord, "--num_processes", "2",
+         "--process_id", str(k)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.time() - t0
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"process {k} returned {p.returncode}:\n{out[-3000:]}")
+    a = open(os.path.join(one, "m.fasta"), "rb").read()
+    b = open(os.path.join(two, "m.fasta"), "rb").read()
+    check(a == b, "two-process merged output != one-process merged output")
+    return {"merged_identical": True, "records": a.count(b">"), "seconds": secs}
+
+
+def phase_e2e(tmp: str, weights, fast5_dir: str, names: list, full: bool = True):
+    """The CLI runs; with ``full``, also the card-vs-CPU label check and the
+    two-process run. An older checkout without the prep pool runs the CLI
+    runs alone."""
+    import concurrent.futures as cf
+    import multiprocessing.pool as mp_pool
+
     import numpy as np
     import torch
 
+    import nanoreviser_torch.io as nanoreviser_io
+    from nanoreviser_torch import infer
     from nanoreviser_torch.cli.reviser import main as cli_main
     from nanoreviser_torch.infer import StreamingReviser
     from nanoreviser_torch.io import get_read_data
@@ -606,51 +789,109 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
 
     kernels = (WINDOW_GATHER, STACK_FULL, STACK_WINDOWS)
     n_bases = sum(get_read_data(os.path.join(fast5_dir, n)).n_bases for n in names)
-    # count the engine's device steps (batches) beside the launches
-    steps = [0]
+    # count the engine's device steps (batches) beside the launches, and
+    # keep the prep pool's start-up time
+    steps, pool_start = [0], [None]
     device_step = StreamingReviser._device_step
+    PrepPool = getattr(infer, "PrepPool", None)
 
     def counted_step(self, *args):
         steps[0] += 1
         return device_step(self, *args)
 
     StreamingReviser._device_step = counted_step
+    if PrepPool is not None:
+        ready = PrepPool.ready
+
+        def timed_ready(self, *args):
+            pool_start.append(ready(self, *args))
+            return pool_start[-1]
+
+        PrepPool.ready = timed_ready
+    # where the CLI's process spends its time: waiting for prepared reads
+    # (a pool's result, or a thread pool's future in an older checkout),
+    # packing reads into batches, submitting a batch, waiting for the
+    # device, merging reads, writing them
+    spent: dict = {}
+    timed = [(mp_pool.ApplyResult, "get", "prep_wait"),
+             (cf.Future, "result", "prep_wait"),
+             (StreamingReviser, "_add_read", "pack"),
+             (StreamingReviser, "_submit", "submit"),
+             (StreamingReviser, "_fetch", "device_wait"),
+             (StreamingReviser, "_merge_one", "merge"),
+             (nanoreviser_io, "write_read_fasta", "write"),
+             (nanoreviser_io, "write_read_fastq", "write")]
+    originals = [getattr(cls, name) for cls, name, _ in timed]
+
+    def timer(fn, key):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+        return wrapper
+
+    for (cls, name, key), fn in zip(timed, originals):
+        setattr(cls, name, timer(fn, key))
     for k in kernels:
         k.launches = 0
     runs = {}
-    for fmt in ("fastq", "fasta"):
-        out_dir = os.path.join(tmp, f"out_{fmt}")
-        failed_fn = os.path.join(tmp, f"failed_{fmt}.txt")
+    # a steady-state run: each read 10 times, as links under new names
+    many = os.path.join(tmp, "fast5_x10")
+    os.makedirs(many)
+    for k in range(10):
+        for n in names:
+            os.symlink(os.path.join(fast5_dir, n), os.path.join(many, f"x{k}_{n}"))
+    for tag, fmt, src, copies in (("fastq", "fastq", fast5_dir, 1),
+                                  ("fasta", "fasta", fast5_dir, 1),
+                                  ("fasta_x10", "fasta", many, 10)):
+        out_dir = os.path.join(tmp, f"out_{tag}")
+        failed_fn = os.path.join(tmp, f"failed_{tag}.txt")
+        steps0 = steps[0]
+        spent.clear()
         torch.cuda.synchronize()
         t0 = time.time()
-        rc = cli_main(["-d", fast5_dir, "-o", out_dir, "-F", fmt,
+        rc = cli_main(["-d", src, "-o", out_dir, "-F", fmt,
                        "--revise_mode", "model", "--device", "cuda",
                        "--model1_predict_dir", weights[0],
                        "--model2_predict_dir", weights[1],
                        "-e", failed_fn, "--thread", "8"])
         secs = time.time() - t0
-        check(rc == 0, f"CLI {fmt} returned {rc}")
-        check(not os.path.exists(failed_fn), f"CLI {fmt} recorded failed reads")
+        check(rc == 0, f"CLI {tag} returned {rc}")
+        check(not os.path.exists(failed_fn), f"CLI {tag} recorded failed reads")
+        n_reads = copies * len(names)
         outs = sorted(os.listdir(out_dir))
-        check(len(outs) == len(names), f"{fmt}: {len(outs)} files for {len(names)} reads")
-        for n in names[:5]:
+        check(len(outs) == n_reads, f"{tag}: {len(outs)} files for {n_reads} reads")
+        for n in sorted(os.listdir(src))[:5]:
             text = open(os.path.join(out_dir, n.split(".")[0] + f"_out.{fmt}")).read()
             lines = text.split("\n")
             check(lines[0] == (">" if fmt == "fasta" else "@") + n, "bad header")
             seq = lines[1].split("+")[0]
             check(set(seq) <= set("ACGTN") and abs(len(seq) - len(
-                get_read_data(os.path.join(fast5_dir, n)).bases)) < 0.2 * len(seq),
+                get_read_data(os.path.join(src, n)).bases)) < 0.2 * len(seq),
                 "revised sequence implausible")
             if fmt == "fastq":
                 check(len(lines[2]) == len(seq), "quality length != sequence length")
-        runs[fmt] = {"seconds": secs, "reads_per_s": len(names) / secs,
-                     "bases_per_s": n_bases / secs}
+        runs[tag] = {"reads": n_reads, "seconds": secs, "reads_per_s": n_reads / secs,
+                     "bases_per_s": copies * n_bases / secs,
+                     "pool_start_seconds": pool_start[-1],
+                     "batches": steps[0] - steps0,
+                     "process_seconds": dict(spent)}
     launches = {k.name: k.launches for k in kernels}
     StreamingReviser._device_step = device_step
+    for (cls, name, _), fn in zip(timed, originals):
+        setattr(cls, name, fn)
+    if PrepPool is not None:
+        PrepPool.ready = ready
     check(steps[0] > 0 and launches == {"window_gather": steps[0],
                                         "stack_full": steps[0],
                                         "stack_windows": 0},
           f"main path launches {launches} for {steps[0]} batches")
+    if not full:
+        emit({"phase": "e2e", "reads": len(names), "bases": n_bases, "runs": runs,
+              "batches": steps[0], "launches": launches, "failed": 0})
+        return launches
 
     # model1 labels on the card (bf16 kernels) vs the CPU engine's plain f32
     # path on three reads, one batch each, all three in flight at once;
@@ -665,9 +906,10 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list):
     per_read = [float(np.mean(got[n] == want[n])) for n, _ in few]
     agree = min(per_read)
     check(agree >= 0.98, f"card vs CPU f32 label agreement per read {per_read}")
+    two = two_process_merged(tmp, weights, fast5_dir)
     emit({"phase": "e2e", "reads": len(names), "bases": n_bases,
           "runs": runs, "batches": steps[0], "launches": launches, "failed": 0,
-          "labels_card_vs_cpu_f32_agreement": agree})
+          "labels_card_vs_cpu_f32_agreement": agree, "two_processes": two})
     return launches
 
 
@@ -676,14 +918,18 @@ def main(argv: list) -> int:
 
     import nanoreviser_torch  # noqa: F401 — fail before any output without it
 
-    gather_only = argv == ["--gather-only"]
-    check(gather_only or not argv, f"unknown arguments {argv}")
+    only = argv[0] if argv else None
+    check(argv in ([], ["--gather-only"], ["--cli-only"]), f"unknown arguments {argv}")
     info = phase_device()
     logs = phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         weights = make_weights(tmp)
         eng, dec, sig, tier, w_valid, fast5_dir, names, grow = phase_gather(tmp, weights)
-        if gather_only:
+        if only == "--cli-only":
+            del eng, dec, sig
+            torch.cuda.empty_cache()
+            phase_e2e(tmp, weights, fast5_dir, names, full=False)
+        if only is not None:
             print(nvidia_smi_line(), flush=True)
             return 0
         srows = phase_stack(eng, dec, sig, tier, w_valid, weights, logs)
@@ -691,6 +937,7 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         wrow = phase_windows(weights, fast5_dir, names, logs)
         torch.cuda.empty_cache()
+        phase_host(fast5_dir, names)
         launches = phase_e2e(tmp, weights, fast5_dir, names)
     rows = [grow] + srows
     for r in rows:

@@ -1,22 +1,30 @@
-"""Reviser command line on PyTorch: model-path revision on one GPU.
+"""Reviser command line on PyTorch: model-path revision on one GPU per process.
 
 Counterpart of ``nanoreviser_tpu/cli/reviser.py``, with its flag surface
-for the model and passthrough modes (reference NanoReviser.py:42-95) plus
-``--device {cuda,cpu}`` (default cuda; cpu runs the plain versions).
+for the model and passthrough modes (reference NanoReviser.py:42-95), the
+multi-process flags, plus ``--device {cuda,cpu}`` (default cuda; cpu runs
+the plain versions).
 
     python -m nanoreviser_torch.cli.reviser -d <fast5_dir> -o <out> \\
         --revise_mode model -F fastq --device cuda
 
-* ``--revise_mode model`` decodes reads on a thread pool
-  (``get_read_data -> compact_read_numpy -> encode_read``) and revises them
-  through ``infer.StreamingReviser``; ``passthrough`` writes the original
-  basecalls (fasta) or the embedded fastq trimmed 7/7 (fastq),
-  byte-identical to the JAX package; ``auto`` picks model when both weight
-  files exist.
-* ``--revise_mode basecaller``, ``--merged_output`` and the multi-host
-  flags are not yet ported and raise.
-* Every read is processed; failed reads are written to the ``-e`` file and
-  the exit code is 1 if any read failed or degraded.
+* ``--revise_mode model`` decodes, compacts and wire-encodes reads on
+  ``infer.hostpipe.PrepPool`` worker processes (``min(--thread, usable
+  CPUs)`` of them) and revises them through ``infer.StreamingReviser``;
+  ``passthrough`` writes the original basecalls (fasta) or the embedded
+  fastq trimmed 7/7 (fastq), byte-identical to the JAX package, decoding on
+  a thread pool; ``auto`` picks model when both weight files exist.
+* Multi-process: ``--coordinator_address host:port --num_processes N
+  --process_id k`` (or NANOREV_COORDINATOR / NANOREV_NUM_PROCESSES /
+  NANOREV_PROCESS_ID) runs N cooperating processes; each revises a
+  contiguous shard of the sorted files on ``cuda:(k % device count)``.
+  ``--merged_output F`` also writes one multi-record file of all reads in
+  sorted order, byte-identical to a one-process run's.
+* ``--revise_mode basecaller`` is not yet ported and raises.
+* Every read is processed. A read that cannot be decoded, compacted or
+  encoded fails: it goes to the ``-e`` file and gets no output file. A read
+  the engine cannot revise degrades to its original bases and is recorded
+  in the ``-e`` file too. The exit code is 1 if any read failed or degraded.
 """
 
 from __future__ import annotations
@@ -100,16 +108,23 @@ def _resolve_models(args) -> tuple[str, str]:
     return args.model1_predict_dir, args.model2_predict_dir
 
 
+def _engine_device(device: str, rank: int, world: int) -> str:
+    """Process k of a multi-process run drives cuda:(k % device count)."""
+    if device != "cuda" or world == 1:
+        return device
+    import torch
+
+    dev = f"cuda:{rank % max(torch.cuda.device_count(), 1)}"
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def main(argv=None) -> int:
     args = get_args(argv)
     if args.revise_mode == "basecaller":
         raise NotImplementedError("--revise_mode basecaller is not yet ported")
-    if args.merged_output:
-        raise NotImplementedError("--merged_output is not yet ported")
-    if args.coordinator_address or (args.num_processes or 1) > 1:
-        raise NotImplementedError("multi-host runs are not yet ported")
 
-    from ..infer.wire import encode_read
+    from .. import dist
     from ..io import (
         extract_fastq,
         get_read_data,
@@ -117,129 +132,155 @@ def main(argv=None) -> int:
         write_read_fasta,
         write_read_fastq,
     )
-    from ..signal.host_prep import compact_read_numpy
     from ..utils import check_path, logger_config
 
-    logger = None
-    if args.test_mode:
-        logger = logger_config("./unitest/unitest_log.txt", "unitest")
+    is_dist = dist.initialize(args.coordinator_address, args.num_processes,
+                              args.process_id)
+    ok = False
+    try:
+        rank, world = dist.process_info() if is_dist else (0, 1)
+        logger = None
+        if args.test_mode:
+            logger = logger_config("./unitest/unitest_log.txt", "unitest")
 
-    m1, m2 = _resolve_models(args)
-    mode = args.revise_mode
-    if mode == "auto":
-        mode = "model" if (os.path.exists(m1) and os.path.exists(m2)) else "passthrough"
-    if mode == "model" and not (os.path.exists(m1) and os.path.exists(m2)):
-        raise RuntimeError(
-            "！！！[Error] model file: Please check the dir of models file!!"
-        )
+        m1, m2 = _resolve_models(args)
+        mode = args.revise_mode
+        if mode == "auto":
+            mode = ("model" if (os.path.exists(m1) and os.path.exists(m2))
+                    else "passthrough")
+        if mode == "model" and not (os.path.exists(m1) and os.path.exists(m2)):
+            raise RuntimeError(
+                "！！！[Error] model file: Please check the dir of models file!!"
+            )
+        check_path(args.output_dir)
+        fast5_fns = list_fast5_files(args.fast5_base_dir)
+        if world > 1:
+            fast5_fns = dist.shard_files(fast5_fns, rank, world)
+            print(f"[p:::] process {rank}/{world}: {len(fast5_fns)} reads")
+        start_time = time.time()
+        failed: list[tuple[str, str]] = []
 
-    check_path(args.output_dir)
-    engine = None
-    if mode == "model":
-        from ..infer import StreamingReviser
+        def report(fn: str, err) -> None:
+            failed.append((fn, str(err)))
+            if args.test_mode and logger:
+                logger.error("[!!! Error] Basecalling")
+            elif not args.test_mode:
+                print(f"！！！[Error] fast5 file: {fn}: {err}")
 
-        engine = StreamingReviser(
-            m1, m2, align=args.align,
-            emit_quality=(args.output_format == "fastq"),
-            device=args.device,
-        )
+        def model_items():
+            """(fn, WireRead, seq, qual) through the prep pool and the device."""
+            from ..infer import PrepPool, StreamingReviser
 
-    fast5_fns = list_fast5_files(args.fast5_base_dir)
-    start_time = time.time()
-    failed: list[tuple[str, str]] = []
+            n_workers = min(max(1, args.thread), len(os.sched_getaffinity(0)))
+            with PrepPool(n_workers, args.basecall_group,
+                          args.basecall_subgroup) as pool:
+                engine = StreamingReviser(
+                    m1, m2, align=args.align,
+                    emit_quality=(args.output_format == "fastq"),
+                    device=_engine_device(args.device, rank, world),
+                )
+                pool.ready()
 
-    def report(fn: str, err) -> None:
-        failed.append((fn, str(err)))
-        if args.test_mode and logger:
-            logger.error("[!!! Error] Basecalling")
-        elif not args.test_mode:
-            print(f"！！！[Error] fast5 file: {fn}: {err}")
+                def prepped():
+                    for fn, wire, err in pool.stream(args.fast5_base_dir,
+                                                     fast5_fns):
+                        if err is not None:
+                            report(fn, err)
+                            continue
+                        yield fn, wire
 
-    def load(fn: str):
-        path = os.path.join(args.fast5_base_dir, fn)
+                # the engine records degraded reads in `failed` before
+                # yielding them
+                yield from engine.revise_stream(prepped(), errors=failed)
+
+        def passthrough_items():
+            """(fn, ReadData, bases, None), decoded on a thread pool."""
+            def load(fn: str):
+                path = os.path.join(args.fast5_base_dir, fn)
+                try:
+                    return fn, get_read_data(path, args.basecall_group,
+                                             args.basecall_subgroup), None
+                except Exception as exc:  # noqa: BLE001 — a bad read fails alone
+                    return fn, None, exc
+
+            n_threads = max(1, args.thread)
+            with cf.ThreadPoolExecutor(max_workers=n_threads) as pool:
+                for fn, read, exc in _bounded_map(pool, load, fast5_fns,
+                                                  max(2 * n_threads, 64)):
+                    if exc is not None:
+                        report(fn, exc)
+                        continue
+                    yield fn, read, read.bases, None
+
+        degraded_names: set[str] = set()
+        n_failed_seen = 0
+
+        def was_degraded(fn: str) -> bool:
+            nonlocal n_failed_seen
+            while n_failed_seen < len(failed):
+                degraded_names.add(failed[n_failed_seen][0])
+                n_failed_seen += 1
+            return fn in degraded_names
+
+        merged_records: list = []
+        items = model_items() if mode == "model" else passthrough_items()
         try:
-            read = get_read_data(path, args.basecall_group, args.basecall_subgroup)
-        except Exception as exc:  # noqa: BLE001 — per-read degradation
-            return fn, None, None, exc
-        wire = None
-        if mode == "model":
-            try:
-                wire = encode_read(compact_read_numpy(read))
-            except Exception:  # noqa: BLE001 — the engine degrades the read
-                wire = None    # itself and records why
-        return fn, read, wire, None
-
-    def revised_items(loaded):
-        """(fn, read, seq, qual) tuples; model mode streams through the device."""
-        def ok_reads():
-            for fn, read, wire, exc in loaded:
-                if exc is not None:
-                    report(fn, exc)
-                    continue
-                yield fn, read, wire
-
-        if mode == "model":
-            items = ((fn, wire if wire is not None else read)
-                     for fn, read, wire in ok_reads())
-            # the engine records degraded reads in `failed` before yielding
-            for fn, read, seq, qual in engine.revise_stream(items, errors=failed):
-                yield fn, read, seq, qual
-        else:
-            for fn, read, _ in ok_reads():
-                yield fn, read, read.bases, None
-
-    degraded_names: set[str] = set()
-    n_failed_seen = 0
-
-    def was_degraded(fn: str) -> bool:
-        nonlocal n_failed_seen
-        while n_failed_seen < len(failed):
-            degraded_names.add(failed[n_failed_seen][0])
-            n_failed_seen += 1
-        return fn in degraded_names
-
-    n_threads = max(1, args.thread)
-    with cf.ThreadPoolExecutor(max_workers=n_threads) as pool:
-        loaded = _bounded_map(pool, load, fast5_fns, max(2 * n_threads, 64))
-        for fn, read, seq, qual in revised_items(loaded):
-            try:
-                stem = fn.split(".")[0]
-                if args.output_format == "fasta":
-                    out_fn = os.path.join(args.output_dir, stem + "_out.fasta")
-                    write_read_fasta(fn, out_fn, seq)
-                else:
-                    out_fn = os.path.join(args.output_dir, stem + "_out.fastq")
-                    if qual is None:
-                        # degraded or passthrough: the reference's fastq
-                        # fallback is the embedded fastq trimmed 7/7
-                        seq, qual = extract_fastq(
-                            os.path.join(args.fast5_base_dir, fn),
-                            args.basecall_group, args.basecall_subgroup,
-                        )
-                    write_read_fastq(fn, out_fn, seq, qual)
-                if mode == "model" and was_degraded(fn):
-                    if args.test_mode and logger:
-                        logger.error(
-                            "[!!! Error] read degraded to passthrough: %s", fn)
+            for fn, _, seq, qual in items:
+                try:
+                    stem = fn.split(".")[0]
+                    if args.output_format == "fasta":
+                        out_fn = os.path.join(args.output_dir, stem + "_out.fasta")
+                        write_read_fasta(fn, out_fn, seq)
                     else:
-                        print(f"！！！[Error] {stem} degraded to passthrough "
-                              f"(see {args.failed_reads_filename})")
-                elif args.test_mode and logger:
-                    logger.info("Congratulations, NanoReviser is installed properly")
-                elif not args.test_mode:
-                    print(f"[p:::] {stem}_out.{args.output_format} was saved......")
-            except Exception as exc:  # noqa: BLE001 — per-read output failure
-                report(fn, exc)
+                        out_fn = os.path.join(args.output_dir, stem + "_out.fastq")
+                        if qual is None:
+                            # degraded or passthrough: the reference's fastq
+                            # fallback is the embedded fastq trimmed 7/7
+                            seq, qual = extract_fastq(
+                                os.path.join(args.fast5_base_dir, fn),
+                                args.basecall_group, args.basecall_subgroup,
+                            )
+                        write_read_fastq(fn, out_fn, seq, qual)
+                    if args.merged_output:
+                        with open(out_fn) as fp:
+                            header, body = fp.read().split("\n", 1)
+                        merged_records.append((header, body))
+                    if mode == "model" and was_degraded(fn):
+                        if args.test_mode and logger:
+                            logger.error(
+                                "[!!! Error] read degraded to passthrough: %s", fn)
+                        else:
+                            print(f"！！！[Error] {stem} degraded to passthrough "
+                                  f"(see {args.failed_reads_filename})")
+                    elif args.test_mode and logger:
+                        logger.info("Congratulations, NanoReviser is installed properly")
+                    elif not args.test_mode:
+                        print(f"[p:::] {stem}_out.{args.output_format} was saved......")
+                except Exception as exc:  # noqa: BLE001 — per-read output failure
+                    report(fn, exc)
+        finally:
+            items.close()   # stops the prep pool if the loop raised
 
-    if failed and args.failed_reads_filename:
-        with open(args.failed_reads_filename, "w") as fp:
-            for fn, err in failed:
-                fp.write(f"{fn}\t{err}\n")
+        if args.merged_output:
+            # every process writes its shard's part; process 0 concatenates
+            # them in shard order
+            dist.write_merged_part(args.output_dir, rank, merged_records)
+            if rank == 0:
+                dist.merge_parts(args.output_dir, args.merged_output, world)
 
-    if not args.test_mode:
-        print("[s:::] NanoReviser time consuming:%.2f seconds"
-              % (time.time() - start_time))
-    return 0 if not failed else 1
+        if failed and args.failed_reads_filename:
+            with open(args.failed_reads_filename, "w") as fp:
+                for fn, err in failed:
+                    fp.write(f"{fn}\t{err}\n")
+
+        if not args.test_mode:
+            print("[s:::] NanoReviser time consuming:%.2f seconds"
+                  % (time.time() - start_time))
+        ok = True
+        return 0 if not failed else 1
+    finally:
+        if is_dist:
+            dist.shutdown(wait=ok)
 
 
 if __name__ == "__main__":

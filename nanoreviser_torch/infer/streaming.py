@@ -219,6 +219,11 @@ class StreamingReviser:
         self._slots = self._make_slots() if self._cuda else []
         self.stats = {"batches": 0, "windows": 0, "reads": 0}
 
+    @property
+    def read_caps(self) -> tuple[int, int]:
+        """(bases, compacted samples) of the largest read a batch holds."""
+        return self.top.n_rows, self.top.s_cap - DMA_LEN - 64 - SIG_HEAD
+
     def _mk_tier(self, w: int) -> _Tier:
         n_rows = w + self.window
         n_rows_g = _round_up(n_rows, ROW_BLOCK)

@@ -119,17 +119,23 @@ class WireRead:
         return len(self.sig8)
 
 
-def encode_read(c: CompactRead) -> WireRead:
-    """CompactRead -> WireRead (vectorized numpy)."""
+def encode_read(c: CompactRead, out: tuple | None = None) -> WireRead:
+    """CompactRead -> WireRead (vectorized numpy).
+
+    ``out``: (sig8, posd, evf, codes) arrays of at least M / N / N / N rows
+    to fill in place (a prep slot); the escape arrays are always new."""
     csig = c.csig
     pos0 = c.pos0.astype(np.int64)
     n = c.n_bases
     m = c.n_samples
     validate_chain_bounds(int(pos0[0]), int(pos0[-1]), m)
-    sig8 = np.empty(m, np.uint8)
-    posd = np.empty(n, np.uint8)
-    evf = np.empty((n, 4), np.float16)
-    codes = np.empty(n, np.uint8)
+    if out is not None:
+        sig8, posd, evf, codes = out[0][:m], out[1][:n], out[2][:n], out[3][:n]
+    else:
+        sig8 = np.empty(m, np.uint8)
+        posd = np.empty(n, np.uint8)
+        evf = np.empty((n, 4), np.float16)
+        codes = np.empty(n, np.uint8)
 
     # --- signal: zig-zag deltas with escapes -------------------------------
     d = np.diff(csig.astype(np.int32))

@@ -1,0 +1,243 @@
+"""ctypes bindings of the host library (``src/nanorev.cpp``).
+
+Counterpart of ``nanoreviser_tpu/native/__init__.py:160-385``, for the
+three entries the serving path calls:
+
+* ``prep_read_native_arrays``    - windowed prep (``prep_read_numpy``);
+* ``compact_read_native_arrays`` - compaction (``compact_read_numpy``);
+* ``encode_wire_native``         - wire encode (``infer.wire.encode_read``).
+
+Each is bit-exact with its numpy twin (``tests/test_torch_native.py``) and
+runs with the GIL released. The library is built by g++ and loaded at the
+first call, never at import (``native.build``); a build that fails raises.
+A call the library refuses raises :class:`NativeError` with its return
+code; ``CAPACITY`` (-2) means a caller's output buffer was too small.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+
+CAPACITY = -2
+
+_lib = None
+_lock = threading.Lock()
+
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_DBL_P = ctypes.POINTER(ctypes.c_double)
+_SIGNATURES = {
+    "nr_prep_read": (ctypes.c_int, [
+        _P, _I64,                 # tail, n_samples
+        _P, _I64,                 # starts, n_bases
+        _P, _P,                   # bases (ascii), durations f32
+        _P, _P,                   # ab_mean, ab_std f32
+        ctypes.c_int,             # qlen
+        _DBL_P, _DBL_P,           # shift, scale (in/out)
+        _P, _P, _P,               # win, vlen, feats
+    ]),
+    "nr_compact_read": (ctypes.c_int64, [
+        _P, _I64, _P, _I64, _P, _P, _P, _P, ctypes.c_int, _DBL_P, _DBL_P,
+        _P, _I64,                 # csig, capacity
+        _P, _P, _P,               # pos0, vlen, feats
+    ]),
+    "nr_encode_wire": (ctypes.c_int64, [
+        _P, _I64,                 # csig, m
+        _P, _P, _P, _P,           # pos0, vlen, feats, bases
+        _I64,                     # n
+        _P, _P, _P, _I64,         # sig8, sig escapes (idx, delta), capacity
+        _P, _P, _P,               # posd, evf, codes
+        _P, _P, _I64,             # duration escapes, capacity
+        _P, _P, _I64,             # vlen escapes, capacity
+        _P, _I64,                 # color escapes, capacity
+        _P,                       # counts out [4]
+    ]),
+}
+
+
+class NativeError(RuntimeError):
+    """The library refused a call; ``rc`` is its return code."""
+
+    def __init__(self, entry: str, rc: int):
+        super().__init__(f"{entry} failed (rc={rc})")
+        self.rc = rc
+
+
+def load() -> ctypes.CDLL:
+    """The library, built on first use (its file name holds a hash of the
+    source, so a stale build is never loaded)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            from .build import build
+
+            lib = ctypes.CDLL(str(build()))
+            for name, (res, args) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = res, args
+            _lib = lib
+        return _lib
+
+
+def _read_inputs(tail, starts, bases: str, durations, ab_mean, ab_std):
+    tail = np.ascontiguousarray(tail, np.int16)
+    starts = np.ascontiguousarray(starts, np.int32)
+    base_bytes = bases.encode("ascii")
+    dur = np.ascontiguousarray(durations, np.float32)
+    abm = np.ascontiguousarray(ab_mean, np.float32)
+    abs_ = np.ascontiguousarray(ab_std, np.float32)
+    n = len(starts)
+    if not (len(base_bytes) == len(dur) == len(abm) == len(abs_) == n):
+        raise ValueError("per-base arrays differ in length")
+    return tail, starts, base_bytes, dur, abm, abs_
+
+
+def _starts_in_range(starts: np.ndarray, n_samples: int) -> bool:
+    """The library copies [st - 25, st + 25) clamped to the signal: every
+    start must lie inside it, in order."""
+    return (len(starts) > 0 and n_samples > 0 and int(starts[0]) >= 0
+            and int(starts[-1]) < n_samples
+            and bool((np.diff(starts) >= 0).all()))
+
+
+def _check_out(arr, dtype, min_len: int, name: str, width: int | None = None):
+    if arr.dtype != dtype or not arr.flags.c_contiguous or not arr.flags.writeable:
+        raise ValueError(f"out array {name} must be writable, C-contiguous {dtype}")
+    if width is not None and (arr.ndim != 2 or arr.shape[1] != width):
+        raise ValueError(f"out array {name} must have {width} columns")
+    return len(arr) >= min_len
+
+
+def prep_read_native_arrays(tail, starts, bases: str, durations, ab_mean,
+                            ab_std, query_len: int, mad: tuple | None = None,
+                            out: tuple | None = None):
+    """(win i16 [N, Q], vlen u8 [N], feats f16 [N, 6], shift, scale) by
+    ``nr_prep_read``. ``out``: (win, vlen, feats) arrays of at least N rows
+    to fill in place; the returned arrays are their first N rows."""
+    lib = load()
+    tail, starts, base_bytes, dur, abm, abs_ = _read_inputs(
+        tail, starts, bases, durations, ab_mean, ab_std)
+    n = len(starts)
+    if out is None:
+        out = (np.empty((n, query_len), np.int16), np.empty(n, np.uint8),
+               np.empty((n, 6), np.float16))
+    win, vlen, feats = out
+    fits = (_check_out(win, np.int16, n, "win", query_len)
+            & _check_out(vlen, np.uint8, n, "vlen")
+            & _check_out(feats, np.float16, n, "feats", 6))
+    if not fits:
+        raise NativeError("nr_prep_read", CAPACITY)
+    if not _starts_in_range(starts, len(tail)):
+        raise NativeError("nr_prep_read", -1)
+    shift = ctypes.c_double(mad[0] if mad else -1e31)
+    scale = ctypes.c_double(mad[1] if mad else -1e31)
+    rc = lib.nr_prep_read(
+        tail.ctypes.data, len(tail), starts.ctypes.data, n, base_bytes,
+        dur.ctypes.data, abm.ctypes.data, abs_.ctypes.data, query_len,
+        ctypes.byref(shift), ctypes.byref(scale),
+        win.ctypes.data, vlen.ctypes.data, feats.ctypes.data)
+    if rc != 0:
+        raise NativeError("nr_prep_read", rc)
+    return win[:n], vlen[:n], feats[:n], float(shift.value), float(scale.value)
+
+
+def compact_read_native_arrays(tail, starts, bases: str, durations, ab_mean,
+                               ab_std, query_len: int, mad: tuple | None = None,
+                               out: tuple | None = None):
+    """(csig i16 [M], pos0 i32 [N], vlen u8 [N], feats f16 [N, 6], shift,
+    scale) by ``nr_compact_read``. ``out``: (csig, pos0, vlen, feats) arrays
+    to fill in place (csig's length is the sample capacity); the returned
+    arrays are their filled prefixes. Raises ``NativeError`` with rc
+    ``CAPACITY`` when they are too small."""
+    lib = load()
+    tail, starts, base_bytes, dur, abm, abs_ = _read_inputs(
+        tail, starts, bases, durations, ab_mean, ab_std)
+    n = len(starts)
+    if out is None:
+        # the compacted signal is at most one window per base and at most
+        # the whole tail
+        out = (np.empty(min(n * query_len, len(tail)) + query_len, np.int16),
+               np.empty(n, np.int32), np.empty(n, np.uint8),
+               np.empty((n, 6), np.float16))
+    csig, pos0, vlen, feats = out
+    fits = (_check_out(csig, np.int16, 0, "csig")
+            & _check_out(pos0, np.int32, n, "pos0")
+            & _check_out(vlen, np.uint8, n, "vlen")
+            & _check_out(feats, np.float16, n, "feats", 6))
+    if not fits:
+        raise NativeError("nr_compact_read", CAPACITY)
+    if not _starts_in_range(starts, len(tail)):
+        raise NativeError("nr_compact_read", -1)
+    shift = ctypes.c_double(mad[0] if mad else -1e31)
+    scale = ctypes.c_double(mad[1] if mad else -1e31)
+    m = lib.nr_compact_read(
+        tail.ctypes.data, len(tail), starts.ctypes.data, n, base_bytes,
+        dur.ctypes.data, abm.ctypes.data, abs_.ctypes.data, query_len,
+        ctypes.byref(shift), ctypes.byref(scale),
+        csig.ctypes.data, len(csig),
+        pos0.ctypes.data, vlen.ctypes.data, feats.ctypes.data)
+    if m < 0:
+        raise NativeError("nr_compact_read", m)
+    return (csig[:m], pos0[:n], vlen[:n], feats[:n],
+            float(shift.value), float(scale.value))
+
+
+ENCODE_OUT = {  # name: (dtype, columns)
+    "sig8": (np.uint8, None), "posd": (np.uint8, None),
+    "evf": (np.float16, 4), "codes": (np.uint8, None),
+    "sig_esc_idx": (np.int32, None), "sig_esc_delta": (np.int32, None),
+    "dur_esc_idx": (np.int32, None), "dur_esc_f32": (np.float32, None),
+    "vlen_esc_idx": (np.int32, None), "vlen_esc_val": (np.int32, None),
+    "col_esc_idx": (np.int32, None),
+}
+
+
+def encode_wire_native(c, out: dict) -> tuple[int, int, int, int]:
+    """Wire-encode a ``CompactRead`` into the caller's arrays by
+    ``nr_encode_wire``; returns the escape counts (ne, nd, nv, nc).
+
+    ``out`` holds the arrays of ``ENCODE_OUT``: sig8 of at least M entries,
+    posd/evf/codes of at least N rows, and escape arrays whose lengths are
+    the capacities (each pair of one length). Raises ``NativeError``: rc
+    ``CAPACITY`` when an array is too small, -6 when a pos0 row delta is
+    outside [0, 50]. The chain bounds (``validate_chain_bounds``) are the
+    caller's to check."""
+    lib = load()
+    n, m = c.n_bases, c.n_samples
+    csig = c.csig
+    ins = ((csig, np.int16), (c.pos0, np.int32), (c.vlen, np.uint8),
+           (c.feats, np.float16))
+    if any(a.dtype != dt or not a.flags.c_contiguous for a, dt in ins):
+        raise ValueError("CompactRead arrays must be C-contiguous i16/i32/u8/f16")
+    if c.pos0.shape != (n,) or c.feats.shape != (n, 6):
+        raise ValueError("CompactRead arrays differ in length")
+    bases = np.frombuffer(c.bases.encode("ascii"), np.uint8)
+    if len(bases) != n:
+        raise ValueError("CompactRead bases differ in length")
+    need = {"sig8": m, "posd": n, "evf": n, "codes": n}
+    fits = all([_check_out(out[k], dt, need.get(k, 0), k, w)
+                for k, (dt, w) in ENCODE_OUT.items()])
+    if not fits:
+        raise NativeError("nr_encode_wire", CAPACITY)
+    for a, b in (("sig_esc_idx", "sig_esc_delta"), ("dur_esc_idx", "dur_esc_f32"),
+                 ("vlen_esc_idx", "vlen_esc_val")):
+        if len(out[a]) != len(out[b]):
+            raise ValueError(f"out arrays {a} and {b} differ in length")
+    counts = np.zeros(4, np.int64)
+    rc = lib.nr_encode_wire(
+        csig.ctypes.data, m, c.pos0.ctypes.data, c.vlen.ctypes.data,
+        c.feats.ctypes.data, bases.ctypes.data, n,
+        out["sig8"].ctypes.data, out["sig_esc_idx"].ctypes.data,
+        out["sig_esc_delta"].ctypes.data, len(out["sig_esc_idx"]),
+        out["posd"].ctypes.data, out["evf"].ctypes.data, out["codes"].ctypes.data,
+        out["dur_esc_idx"].ctypes.data, out["dur_esc_f32"].ctypes.data,
+        len(out["dur_esc_idx"]),
+        out["vlen_esc_idx"].ctypes.data, out["vlen_esc_val"].ctypes.data,
+        len(out["vlen_esc_idx"]),
+        out["col_esc_idx"].ctypes.data, len(out["col_esc_idx"]),
+        counts.ctypes.data)
+    if rc != 0:
+        raise NativeError("nr_encode_wire", rc)
+    return int(counts[0]), int(counts[1]), int(counts[2]), int(counts[3])

@@ -1,7 +1,6 @@
-"""Per-read host preparation: the windowed prep and the compaction (copy of
-``PreppedRead``, ``prep_read``, ``prep_read_numpy``, ``prep_fast5``,
-``CompactRead`` and ``compact_read_numpy`` from
-``nanoreviser_tpu/signal/host_prep.py:53-335``).
+"""Per-read host preparation: the windowed prep, the compaction and the
+prep pool's worker entry points (counterpart of
+``nanoreviser_tpu/signal/host_prep.py``).
 
 The windowed prep gathers each base's raw 50-sample window on the host
 (``PreppedRead.win``, int16) for the pre-gathered-window path
@@ -24,19 +23,48 @@ nanorevtrainutils.py:160-169):
   [st, next_st) (last base: the 3/5-rule duration), in f64;
 * the 6 feature columns are [color/300, ev_mean/shift, ev_std/scale,
   duration/10, ab_mean, ab_std], rounded once from f64 to f16.
+
+``prep_read`` and ``compact_read`` run the host library (``native``,
+C++, bit-exact with the numpy functions; the windowed prep's pad columns
+are zero there). A read the library refuses for a reason other than the
+size of the caller's buffers is run again on the numpy path, which raises
+the package's own error for a bad read; ``native_fallbacks`` counts those
+reads in this process.
+
+This module and everything it imports stay free of torch: the prep pool's
+``spawn`` workers (``infer.hostpipe``) import it.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..io.fast5 import ReadData
+from .. import native
+from ..io.fast5 import ReadData, get_read_data
 from .features import BASE_COLOR_TABLE, ascii_codes
 from .segmentation import mad_normalizers_int16
 
 QUERY_LEN = 50
+
+_native_fallbacks = 0
+
+
+def native_fallbacks() -> int:
+    """Reads this process ran again on the numpy path after the host
+    library refused them (a retry with larger buffers is not counted)."""
+    return _native_fallbacks
+
+
+def _fall_back(exc: Exception) -> None:
+    global _native_fallbacks
+    _native_fallbacks += 1
+    if _native_fallbacks == 1:
+        logging.getLogger("nanoreviser_torch").warning(
+            "host library refused a read (%s); running it on the numpy path",
+            exc)
 
 
 @dataclass
@@ -55,12 +83,24 @@ class PreppedRead:
         return len(self.vlen)
 
 
-def prep_read(rd: ReadData, query_len: int = QUERY_LEN) -> PreppedRead:
-    """ReadData -> PreppedRead through the numpy path.
+def prep_read(rd: ReadData, query_len: int = QUERY_LEN,
+              out: tuple | None = None) -> PreppedRead:
+    """ReadData -> PreppedRead by the host library (``nr_prep_read``).
 
-    The JAX package dispatches to its native C++ library first; the port has
-    no native layer yet, so this calls :func:`prep_read_numpy` directly."""
-    return prep_read_numpy(rd, query_len)
+    ``out``: (win, vlen, feats) arrays of at least N rows to fill in place;
+    a read larger than them is prepped into new arrays."""
+    tail = rd.signal[rd.read_start_rel_to_raw :]
+    try:
+        win, vlen, feats, shift, scale = native.prep_read_native_arrays(
+            tail, rd.starts, rd.bases, rd.lengths, rd.ab_mean, rd.ab_std,
+            query_len, mad=rd.mad, out=out)
+    except native.NativeError as exc:
+        if exc.rc == native.CAPACITY and out is not None:
+            return prep_read(rd, query_len)
+        _fall_back(exc)
+        return prep_read_numpy(rd, query_len)
+    return PreppedRead(bases=rd.bases, win=win, vlen=vlen, feats=feats,
+                       shift=shift, scale=scale)
 
 
 def prep_read_numpy(rd: ReadData, query_len: int = QUERY_LEN) -> PreppedRead:
@@ -111,8 +151,6 @@ def prep_fast5(
     basecall_subgroup: str = "BaseCalled_template",
 ) -> PreppedRead:
     """Decode + prep one fast5."""
-    from ..io.fast5 import get_read_data
-
     return prep_read(get_read_data(path, basecall_group, basecall_subgroup))
 
 
@@ -226,3 +264,192 @@ def compact_read_numpy(rd: ReadData, query_len: int = QUERY_LEN) -> CompactRead:
         bases=rd.bases, csig=csig, pos0=pos0, vlen=vlen, feats=feats,
         shift=float(shift), scale=float(scale),
     )
+
+
+def compact_read(rd: ReadData, query_len: int = QUERY_LEN,
+                 out: tuple | None = None) -> CompactRead:
+    """ReadData -> CompactRead by the host library (``nr_compact_read``).
+
+    ``out``: (csig, pos0, vlen, feats) arrays to fill in place (csig's
+    length is the sample capacity); a read larger than them is compacted
+    into new arrays."""
+    tail = rd.signal[rd.read_start_rel_to_raw :]
+    try:
+        csig, pos0, vlen, feats, shift, scale = native.compact_read_native_arrays(
+            tail, rd.starts, rd.bases, rd.lengths, rd.ab_mean, rd.ab_std,
+            query_len, mad=rd.mad, out=out)
+    except native.NativeError as exc:
+        if exc.rc == native.CAPACITY and out is not None:
+            return compact_read(rd, query_len)
+        _fall_back(exc)
+        return compact_read_numpy(rd, query_len)
+    return CompactRead(bases=rd.bases, csig=csig, pos0=pos0, vlen=vlen,
+                       feats=feats, shift=shift, scale=scale)
+
+
+def compact_fast5(
+    path: str,
+    basecall_group: str = "Basecall_1D_000",
+    basecall_subgroup: str = "BaseCalled_template",
+    out: tuple | None = None,
+) -> CompactRead:
+    """Decode (``io.fast5.get_read_data``) and compact one fast5."""
+    return compact_read(
+        get_read_data(path, basecall_group, basecall_subgroup), out=out)
+
+
+# ---- the prep pool's worker entry points (infer.hostpipe) ------------------
+# A worker decodes, compacts and wire-encodes a read into a /dev/shm slot;
+# only the small fields travel back through the pool's result pipe.
+
+_WORKER_SLOTS: dict = {}
+_WORKER_SCRATCH: dict = {}
+
+
+def _pool_init(ready) -> None:
+    """Worker initializer: load the host library, then release ``ready``
+    (a semaphore), so the pool can tell when its workers have started."""
+    native.load()
+    ready.release()
+
+
+def _compact_scratch(cap_bases: int, cap_samples: int) -> tuple:
+    """This process's reusable compaction outputs (csig, pos0, vlen, feats)."""
+    key = (cap_bases, cap_samples)
+    s = _WORKER_SCRATCH.get(key)
+    if s is None:
+        s = (np.empty(cap_samples, np.int16), np.empty(cap_bases, np.int32),
+             np.empty(cap_bases, np.uint8), np.empty((cap_bases, 6), np.float16))
+        _WORKER_SCRATCH[key] = s
+    return s
+
+
+def _compact_bounded(path: str, group: str, subgroup: str, cap_bases: int,
+                     cap_samples: int) -> CompactRead:
+    """``compact_fast5`` into this process's scratch arrays; a read beyond
+    them is compacted into new arrays (``compact_read``'s retry)."""
+    return compact_fast5(path, group, subgroup,
+                         out=_compact_scratch(cap_bases, cap_samples))
+
+
+def slot_layout(cap_bases: int, cap_samples: int | None = None) -> dict:
+    """Byte offsets of one prep slot holding a wire-encoded read: u8 signal
+    deltas | u8 pos deltas | f16 evf[., 4] | u8 codes | the signal,
+    duration, vlen and color escape arrays. ``cap_samples`` defaults to the
+    largest compaction of ``cap_bases`` bases (50 samples each)."""
+    if cap_samples is None:
+        cap_samples = QUERY_LEN * cap_bases
+    caps = {"esc_cap": cap_samples // 64,    # 1.56% of samples
+            "dur_cap": cap_bases // 16, "vl_cap": 4096, "col_cap": 4096}
+    off, pos = {}, 0
+    for name, nbytes in (
+        ("sig8", cap_samples),
+        ("posd", cap_bases),
+        ("evf", 2 * 4 * cap_bases),
+        ("codes", cap_bases),
+        ("sig_esc_idx", 4 * caps["esc_cap"]),
+        ("sig_esc_delta", 4 * caps["esc_cap"]),
+        ("dur_esc_idx", 4 * caps["dur_cap"]),
+        ("dur_esc_f32", 4 * caps["dur_cap"]),
+        ("vlen_esc_idx", 4 * caps["vl_cap"]),
+        ("vlen_esc_val", 4 * caps["vl_cap"]),
+        ("col_esc_idx", 4 * caps["col_cap"]),
+    ):
+        off[name] = pos
+        pos += nbytes
+    return {**off, **caps, "total": pos, "cap_samples": cap_samples}
+
+
+def _worker_slot(slot_path: str) -> np.memmap:
+    m = _WORKER_SLOTS.get(slot_path)
+    if m is None:
+        m = np.memmap(slot_path, dtype=np.uint8, mode="r+")
+        _WORKER_SLOTS[slot_path] = m
+    return m
+
+
+def _slot_views(buf, layout: dict, n_bases: int, m_samples: int,
+                counts=None) -> dict:
+    """Numpy views of one slot's wire arrays. ``counts``: (ne, nd, nv, nc)
+    escape-entry counts (the full capacities when None, for the writer)."""
+    ne, nd, nv, nc = counts or (
+        layout["esc_cap"], layout["dur_cap"], layout["vl_cap"], layout["col_cap"])
+
+    def view(name, dtype, count):
+        return np.frombuffer(buf, dtype, count, layout[name])
+
+    return {
+        "sig8": view("sig8", np.uint8, m_samples),
+        "posd": view("posd", np.uint8, n_bases),
+        "evf": view("evf", np.float16, n_bases * 4).reshape(n_bases, 4),
+        "codes": view("codes", np.uint8, n_bases),
+        "sig_esc_idx": view("sig_esc_idx", np.int32, ne),
+        "sig_esc_delta": view("sig_esc_delta", np.int32, ne),
+        "dur_esc_idx": view("dur_esc_idx", np.int32, nd),
+        "dur_esc_f32": view("dur_esc_f32", np.float32, nd),
+        "vlen_esc_idx": view("vlen_esc_idx", np.int32, nv),
+        "vlen_esc_val": view("vlen_esc_val", np.int32, nv),
+        "col_esc_idx": view("col_esc_idx", np.int32, nc),
+    }
+
+
+def _pool_prep_one(path: str, buf, group: str, subgroup: str, cap_bases: int,
+                   cap_samples: int):
+    """Decode (basecall ``group``/``subgroup``), compact and wire-encode one
+    fast5 into ``buf`` (a slot's bytes, or None). Returns (payload, error,
+    native_fallbacks):
+
+    * payload (n, m, shift, scale, bases, first_val, last_val, pos0_first,
+      pos0_last, ne, nd, nv, nc) when the read is in ``buf``;
+    * payload a ``WireRead`` of its own arrays when there is no ``buf`` or
+      the read exceeds a slot capacity (it travels pickled);
+    * payload None and the error text when the read failed.
+
+    native_fallbacks counts the read's reruns on the numpy path."""
+    from ..infer.wire import encode_read, validate_chain_bounds
+
+    before = _native_fallbacks
+    try:
+        c = _compact_bounded(path, group, subgroup, cap_bases, cap_samples)
+        n, m = c.n_bases, c.n_samples
+        if buf is None or n > cap_bases or m > cap_samples:
+            return encode_read(c), None, _native_fallbacks - before
+        # the library leaves the chain bounds to its caller
+        validate_chain_bounds(int(c.pos0[0]), int(c.pos0[n - 1]), m)
+        layout = slot_layout(cap_bases, cap_samples)
+        v = _slot_views(buf, layout, n, m)
+        try:
+            ne, nd, nv, nc = native.encode_wire_native(c, v)
+        except native.NativeError as exc:
+            if exc.rc == native.CAPACITY:   # escapes beyond the slot's lists
+                return encode_read(c), None, _native_fallbacks - before
+            _fall_back(exc)
+            w = encode_read(c, out=(v["sig8"], v["posd"], v["evf"], v["codes"]))
+            ne, nd = len(w.sig_esc_idx), len(w.dur_esc_idx)
+            nv, nc = len(w.vlen_esc_idx), len(w.col_esc_idx)
+            if (ne > layout["esc_cap"] or nd > layout["dur_cap"]
+                    or nv > layout["vl_cap"] or nc > layout["col_cap"]):
+                return w, None, _native_fallbacks - before
+            for k in ("sig_esc_idx", "sig_esc_delta", "dur_esc_idx",
+                      "dur_esc_f32", "vlen_esc_idx", "vlen_esc_val",
+                      "col_esc_idx"):
+                v[k][: len(getattr(w, k))] = getattr(w, k)
+        return ((n, m, c.shift, c.scale, c.bases, int(c.csig[0]),
+                 int(c.csig[m - 1]), int(c.pos0[0]), int(c.pos0[n - 1]),
+                 ne, nd, nv, nc), None, _native_fallbacks - before)
+    except Exception as exc:  # noqa: BLE001 — a bad read fails alone
+        return None, str(exc), _native_fallbacks - before
+
+
+def _pool_prep_to_slot(path: str, slot_path: str | None, *spec):
+    """``_pool_prep_one`` into the /dev/shm slot at ``slot_path`` (None:
+    no slot was free, the read travels pickled); ``spec`` is (group,
+    subgroup, cap_bases, cap_samples)."""
+    buf = _worker_slot(slot_path) if slot_path is not None else None
+    return _pool_prep_one(path, buf, *spec)
+
+
+def _pool_prep_chunk(paths: list, slot_paths: list, *spec) -> list:
+    """A chunk of reads per task: one round trip through the pool's pipes
+    for several reads."""
+    return [_pool_prep_to_slot(p, s, *spec) for p, s in zip(paths, slot_paths)]
