@@ -3,10 +3,12 @@
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --gather-only   # phases device, build and gather
     python3 chip_smoke.py --cli-only      # device, build, gather, e2e's CLI runs
+    python3 chip_smoke.py --train-only    # device, build, train
 
-``--gather-only`` times the window gather, and ``--cli-only`` the CLI
-runs of phase e2e, of whatever package sits beside this file, so a copy of
-it in an older checkout times that checkout the same way.
+``--gather-only`` times the window gather, ``--cli-only`` the CLI runs of
+phase e2e and ``--train-only`` the training path, of whatever package sits
+beside this file, so a copy of it in an older checkout times that checkout
+the same way.
 
 Phases, each printing one JSON line:
 
@@ -77,6 +79,26 @@ Phases, each printing one JSON line:
              processes on the one card (--num_processes 2, --merged_output,
              --align center): the merged fasta must be byte-identical to a
              one-process --merged_output run's.
+8. train   - the training path at the model's full width and the CLI's
+             defaults (batch 512, T = 13): 8 synthetic reads of ~10k bases
+             and a genome of their bases with ~2% substitutions and short
+             indels; ``python -m nanoreviser_torch.cli.train`` on the card
+             (2 epochs, both models, 8 labelling threads): rc 0, every
+             artifact, finite losses, labels beyond the match class;
+             labelling ms per read; one train step on the card against the
+             CPU from the trained params and one batch, dropout and TF32
+             off, in f64 (every bar per element: loss rtol 1e-5, gradients
+             rtol 1e-4 / atol 1e-6, BN batch moments 1e-5, moving
+             statistics 1e-6, params within 2*lr and >= 99% within 1e-5)
+             and in f32 (the same, the gradient bar on each tensor's
+             largest element); forward, backward and optimizer ms per step
+             from CUDA events, peak memory, and one timed epoch of
+             train_model per model (steps/s, windows/s); the torch DP on
+             the card against nr_banded_sw on one read (identical ops,
+             both times); the exported .h5 loaded into the serving engine,
+             stack_full against its bf16 plain version on them (B2's
+             bars); and the 8 reads revised through the CLI with them (no
+             failed read, one window_gather and one stack_full per batch).
 
 Then the kernel table line, nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
@@ -913,16 +935,415 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list, full: bool = True)
     return launches
 
 
+TRAIN_READS = 8
+TRAIN_WINDOW = 13               # the training CLI's defaults: -w 13 -b 512
+TRAIN_BATCH = 512
+TRAIN_LR = 1e-3
+
+
+def write_training_data(tmp: str):
+    """8 synthetic reads of ~10k bases and a genome of their bases with ~2%
+    substitutions and a short indel every ~400 bases, every other read's
+    segment reverse-complemented, so that labels cover more than matches
+    and the aligner sees both strands."""
+    import numpy as np
+
+    from nanoreviser_torch.align.sam import rev_comp
+    from nanoreviser_torch.io import get_read_data
+    from nanoreviser_torch.io.synthetic import write_synthetic_dir
+
+    fast5_dir = os.path.join(tmp, "train_fast5")
+    names = write_synthetic_dir(fast5_dir, TRAIN_READS, READ_BASES, seed=SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+    records = []
+    for k, n in enumerate(names):
+        seq = list(get_read_data(os.path.join(fast5_dir, n)).bases)
+        for i in np.flatnonzero(rng.random(len(seq)) < 0.02):
+            seq[i] = "ACGT"[rng.integers(4)]
+        for i in sorted(rng.choice(len(seq), len(seq) // 400, replace=False))[::-1]:
+            ln = int(rng.integers(1, 4))
+            if rng.random() < 0.5:
+                del seq[i : i + ln]
+            else:
+                seq[i:i] = list(rng.choice(list("ACGT"), ln))
+        g = "".join(seq)
+        records.append(f">chr{k}\n{rev_comp(g) if k % 2 else g}\n")
+    genome_fn = os.path.join(tmp, "train_genome.fasta")
+    with open(genome_fn, "w") as fp:
+        fp.write("".join(records))
+    return fast5_dir, names, genome_fn
+
+
+def _step_parity(p_np: dict, batch_np: dict, n_classes: int, dtype) -> dict:
+    """One train step on the card and on the CPU from the same params and
+    batch, dropout off, TF32 off; the worst ratio of each difference to its
+    bar (a ratio <= 1 passes). Gradients: per element in f64; in f32 on
+    each tensor's largest element (``elementwise_f32`` is the per-element
+    ratio, reported only), because f32 rounding alone moves near-zero
+    elements of the LSTM gradients past the per-element bar."""
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.models import ReviserConfig
+    from nanoreviser_torch.train.step import (
+        BN_KEYS, is_trained, keras_adam, make_train_step, param_leaves, params_to_torch)
+
+    cfg = ReviserConfig(window=TRAIN_WINDOW, n_classes=n_classes, dropout_rate=0.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = params_to_torch(p_np, dev, dtype)
+        opt = keras_adam(params, TRAIN_LR)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        batch = {k: v.to(dtype) if v.is_floating_point() else v.long()
+                 for k, v in batch.items()}
+        metrics, stats = make_train_step(cfg)(params, opt, batch)
+        out[dev] = (float(metrics["loss"]),
+                    {p: (l.detach().cpu().double().numpy(),
+                         None if l.grad is None else l.grad.cpu().double().numpy())
+                     for p, l in param_leaves(params)},
+                    {(k, m): stats[k][m].cpu().double().numpy()
+                     for k in BN_KEYS for m in ("mean", "var")})
+    (lc, pc, sc), (lg, pg, sg) = out["cpu"], out["cuda"]
+    r = {"loss": abs(lg - lc) / (1e-5 * abs(lc)), "grads": 0.0, "elementwise_f32": 0.0,
+         "bn_batch_stats": 0.0, "moving_stats": 0.0, "params_2lr": 0.0}
+    n_el = n_close = 0
+    for path, (vc, gc) in pc.items():
+        vg, gg = pg[path]
+        if not is_trained(path):
+            r["moving_stats"] = max(r["moving_stats"], float(
+                (np.abs(vg - vc) / (1e-6 + 1e-6 * np.abs(vc))).max()))
+            continue
+        d = np.abs(gg - gc)
+        per_el = float((d / (1e-6 + 1e-4 * np.abs(gc))).max())
+        if dtype == torch.float64:
+            r["grads"] = max(r["grads"], per_el)
+        else:
+            r["elementwise_f32"] = max(r["elementwise_f32"], per_el)
+            r["grads"] = max(r["grads"], float(d.max()) / (
+                1e-6 + 1e-4 * float(np.abs(gc).max())))
+        dp = np.abs(vg - vc)
+        r["params_2lr"] = max(r["params_2lr"], float(dp.max()) / (2 * TRAIN_LR))
+        n_el += dp.size
+        n_close += int((dp <= 1e-5).sum())
+    for k, vc in sc.items():
+        r["bn_batch_stats"] = max(r["bn_batch_stats"], float(
+            (np.abs(sg[k] - vc) / (1e-5 + 1e-5 * np.abs(vc))).max()))
+    r["params_within_1e-5"] = n_close / n_el
+    gated = {k: v for k, v in r.items() if k not in ("elementwise_f32", "params_within_1e-5")}
+    r["ok"] = all(v <= 1.0 for v in gated.values()) and r["params_within_1e-5"] >= 0.99
+    return r
+
+
+def _time_steps(p_np: dict, corpus, n_classes: int, n_steps: int = 20) -> dict:
+    """Forward, backward and optimizer ms per step at batch 512 from CUDA
+    events over ``n_steps`` steps (after 3 to warm up), the steps' wall
+    rate, and the peak device memory."""
+    import torch
+
+    from nanoreviser_torch.models import ReviserConfig, reviser_apply
+    from nanoreviser_torch.train.data import BatchIterator
+    from nanoreviser_torch.train.loop import _uploader
+    from nanoreviser_torch.train.loss import reviser_loss
+    from nanoreviser_torch.train.step import (
+        default_class_weights, keras_adam, params_to_torch, update_moving_stats)
+
+    dev = torch.device("cuda", 0)
+    cfg = ReviserConfig(window=TRAIN_WINDOW, n_classes=n_classes)
+    params = params_to_torch(p_np, dev)
+    opt = keras_adam(params, TRAIN_LR)
+    cw = torch.as_tensor(default_class_weights(n_classes), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    y = corpus.y if n_classes == 6 else corpus.y2
+    it = BatchIterator(corpus.feats, corpus.signal, y, TRAIN_BATCH, 0.01, SEED,
+                       window=TRAIN_WINDOW)
+    up = _uploader(dev)
+    batches = [up(b) for _, b in zip(range(n_steps + 3), it.epoch())]
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = 0.0
+    for k, b in enumerate(batches):
+        if k == 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        e = ev[k]
+        e[0].record()
+        opt.zero_grad(set_to_none=True)
+        probs, feature, stats = reviser_apply(params, b["signal"], b["feats"], cfg,
+                                              train=True, generator=gen)
+        loss, _ = reviser_loss(probs, feature, params["centers"], b["y"], cw,
+                               sample_weight=b["weight"])
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        opt.step()
+        update_moving_stats(params, {k2: {m: v.detach() for m, v in s.items()}
+                                     for k2, s in stats.items()})
+        e[3].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = [[e[i].elapsed_time(e[i + 1]) for i in range(3)] for e in ev[3:]]
+    mean = [sum(m[i] for m in ms) / len(ms) for i in range(3)]
+
+    # how much of a step is the host's launching: the forward and loss
+    # (no grad, dropout off) per eager call and replayed as one CUDA graph
+    b = batches[-1]
+    cfg0 = ReviserConfig(window=TRAIN_WINDOW, n_classes=n_classes, dropout_rate=0.0)
+
+    @torch.no_grad()
+    def forward():
+        probs, feature, _ = reviser_apply(params, b["signal"], b["feats"], cfg0,
+                                          train=True)
+        return reviser_loss(probs, feature, params["centers"], b["y"], cw,
+                            sample_weight=b["weight"])[0]
+
+    return {"steps": n_steps, "forward_ms": mean[0], "backward_ms": mean[1],
+            "optimizer_ms": mean[2], "step_ms_wall": wall * 1e3 / n_steps,
+            "steps_per_s": n_steps / wall, "windows_per_s": n_steps * TRAIN_BATCH / wall,
+            "peak_mem_bytes": peak,
+            "forward_nograd_eager_ms": cuda_ms(forward, reps=10),
+            "forward_nograd_graph_ms": graph_ms(forward, reps=1, replays=10),
+            "profiled": _profile_steps(params, opt, cfg, gen, batches[:5])}
+
+
+def _profile_steps(params, opt, cfg, gen, batches) -> dict:
+    """Device activity over a few train steps (``make_train_step``'s) under
+    ``torch.profiler``: the device's busy share of the wall clock (the sum
+    of its kernel and copy times; one stream, so they do not overlap), and
+    the device events per step. The profiler's own cost lengthens the wall
+    clock, so the share is a lower bound of the share without it. Not
+    measured (None, with the error) where the profiler records no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nanoreviser_torch.train.step import make_train_step
+
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                step(params, opt, b, gen)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as exc:  # noqa: BLE001 — a measurement, reported as missing
+        return {"busy_share": None, "error": repr(exc)[:300]}
+    if not dev:
+        return {"busy_share": None, "error": "no device events recorded"}
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    return {"steps": len(batches), "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / wall_us, "device_events_per_step": len(dev) / len(batches)}
+
+
+def phase_train(tmp: str) -> dict:
+    """The training path on the card: labelling, the training CLI, one step
+    held against the CPU, speed, the torch DP against the host library, and
+    the trained weights through the serving kernels."""
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.align import sw
+    from nanoreviser_torch.align.sam import rev_comp
+    from nanoreviser_torch.cli.reviser import main as reviser_main
+    from nanoreviser_torch.infer import StreamingReviser
+    from nanoreviser_torch.infer.wire import decode_wire, encode_read, wire_to_tensors
+    from nanoreviser_torch.io import get_read_data, parse_fasta
+    from nanoreviser_torch.ops import reviser_kernel as rk
+    from nanoreviser_torch.ops.window_gather import WINDOW_GATHER, window_gather
+    from nanoreviser_torch.signal import compact_read_numpy
+    from nanoreviser_torch.train.data import (
+        BatchIterator, label_read, load_training_corpus)
+    from nanoreviser_torch.train.loop import load_params_npz, train_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    fast5_dir, names, genome_fn = write_training_data(tmp)
+    data_s = time.time() - t0
+
+    # 1. the training CLI, as a user runs it
+    out, root, work = (os.path.join(tmp, d) for d in ("train_out", "train_model", "train_tmp"))
+    failed_fn = os.path.join(tmp, "train_failed.txt")
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "nanoreviser_torch.cli.train", "-d", fast5_dir,
+         "-r", genome_fn, "--model_type", "both", "-e", "2", "-b", str(TRAIN_BATCH),
+         "-w", str(TRAIN_WINDOW), "--thread", "8", "-o", out, "-M", root, "-t", work,
+         "-S", "smoke", "-f", failed_fn],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    cli_s = time.time() - t0
+    check(res.returncode == 0, f"training CLI returned {res.returncode}:\n"
+          f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    check(not os.path.exists(failed_fn), "training CLI recorded failed reads")
+    species = os.path.join(root, "smoke")
+    inputs = sorted(os.listdir(os.path.join(species, "training_input")))
+    check(inputs == [n.split(".")[0] + ".npz" for n in names],
+          f"label caches {inputs}")
+    history, weights = {}, {}
+    for tag in ("model1", "model2"):
+        stem = f"smoke_win{TRAIN_WINDOW}_2ep_{tag}"
+        for path in (os.path.join(species, stem + ".h5"),
+                     os.path.join(species, stem + ".npz"),
+                     os.path.join(species, "training_model", f"train_{stem}.npz"),
+                     os.path.join(out, stem + "_hisroty.csv"),
+                     os.path.join(out, stem + "_parameters.json")):
+            check(os.path.getsize(path) > 0, f"missing artifact {path}")
+        rows = open(os.path.join(out, stem + "_hisroty.csv")).read().split()
+        check(rows[0] == "loss,accuracy,val_loss,val_accuracy" and len(rows) == 3,
+              f"{tag} history {rows}")
+        vals = [[float(v) for v in r.split(",")] for r in rows[1:]]
+        check(all(math.isfinite(v) for r in vals for v in r), f"{tag} history {vals}")
+        history[tag] = dict(zip(rows[0].split(","), zip(*vals)))
+        weights[tag] = os.path.join(species, stem + ".h5")
+    epoch_s = [float(ln.rsplit("(", 1)[1].rstrip("s)")) for ln in res.stdout.splitlines()
+               if ln.startswith("[p:::] epoch")]
+
+    # labels beyond the match class
+    mapvals = np.concatenate([np.load(os.path.join(species, "training_input", f))["mapvals"]
+                              for f in inputs])
+    label_mix = {c: int((mapvals == c).sum()) for c in "MXID"}
+    check(label_mix["X"] > 0 and label_mix["D"] + label_mix["I"] > 0,
+          f"labels are matches only {label_mix}")
+
+    # labelling ms per read, one thread, in this process
+    genome = parse_fasta(genome_fn)
+    index = sw.KmerIndex(genome)
+    t0 = time.perf_counter()
+    for n in names:
+        label_read(os.path.join(fast5_dir, n), genome, kmer_index=index)
+    label_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+
+    # 2. one step on the card against the CPU, from model1's trained params
+    corpus = load_training_corpus(os.path.join(species, "training_input"), TRAIN_WINDOW)
+    p1 = load_params_npz(os.path.join(species, f"smoke_win{TRAIN_WINDOW}_2ep_model1.npz"))
+    b = next(BatchIterator(corpus.feats, corpus.signal, corpus.y, TRAIN_BATCH, 0.01,
+                           SEED, window=TRAIN_WINDOW).epoch())
+    parity = {str(dt).split(".")[1]: _step_parity(p1, b, 6, dt)
+              for dt in (torch.float64, torch.float32)}
+    for dt, r in parity.items():
+        check(r["ok"], f"train step card vs CPU ({dt}) misses a bar: {r}")
+
+    # 3. speed: per-step phases, and one epoch of train_model per model
+    speed = {}
+    for tag, nc in (("model1", 6), ("model2", 5)):
+        p = load_params_npz(os.path.join(species, f"smoke_win{TRAIN_WINDOW}_2ep_{tag}.npz"))
+        steps = _time_steps(p, corpus, nc)
+        y = corpus.y if nc == 6 else corpus.y2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, h = train_model(corpus.feats, corpus.signal, y, n_classes=nc,
+                           window=TRAIN_WINDOW, epochs=1, batch_size=TRAIN_BATCH,
+                           verbose=False, device="cuda")
+        secs = time.perf_counter() - t0
+        n_steps = -(-(len(y) - int(len(y) * 0.01)) // TRAIN_BATCH)
+        check(math.isfinite(h["loss"][0]), f"{tag} epoch loss {h}")
+        speed[tag] = dict(steps, epoch_seconds=secs, epoch_steps=n_steps,
+                          epoch_steps_per_s=n_steps / secs,
+                          epoch_windows_per_s=n_steps * TRAIN_BATCH / secs)
+
+    # 4. the torch DP on the card against the host library, on read 0
+    read = get_read_data(os.path.join(fast5_dir, names[0])).bases
+    hit = index.seed(sw.encode_seq(read))
+    check(hit is not None, "read 0 did not seed")
+    q = read if hit.strand == "+" else rev_comp(read)
+    lead, tail = ((hit.margin_lead, hit.margin_tail) if hit.strand == "+"
+                  else (hit.margin_tail, hit.margin_lead))
+    target = genome[hit.chrom][hit.t_start : hit.t_end]
+    sw.align_banded(q[:300], target[:700], t_lead=lead, backend="torch",
+                    device="cuda")                                   # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp_card = sw.align_banded(q, target, t_lead=lead, t_tail=tail, backend="torch",
+                              device="cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp_host = sw.align_banded(q, target, t_lead=lead, t_tail=tail, backend="native")
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(dp_card[0], dp_host[0]) and dp_card[1:] == dp_host[1:],
+          f"torch DP on the card != nr_banded_sw {dp_card[1:]} {dp_host[1:]}")
+
+    # 5. the trained weights through the serving kernels
+    eng = StreamingReviser(weights["model1"], weights["model2"], device="cuda")
+    check(eng.window == TRAIN_WINDOW, f"engine window {eng.window}")
+    wires = [(n, encode_read(compact_read_numpy(get_read_data(os.path.join(fast5_dir, n)))))
+             for n in names]
+    packed, tier, n_packed = eng.pack_batch(wires)
+    check(n_packed == len(names), f"packed {n_packed} of {len(names)} reads")
+    w_valid = int(packed["wvalid"][0])
+    dec = decode_wire(wire_to_tensors(packed, eng.device), s_cap=tier.s_cap,
+                      n_rows=tier.n_rows, n_rows_g=tier.n_rows_g)
+    sig = window_gather(dec.sig, dec.pos0, dec.vlen, dec.read_id, dec.shift,
+                        dec.scale, int(packed["nv"][0]) * 128)
+    kw = dict(t_len=eng.window, w_valid=w_valid, n_windows=tier.w_max, want_probs=True)
+    logits, _ = rk.stack_logits_full(eng._ws, sig, dec.feats, **kw)
+    lp, _ = rk.stack_logits_plain(eng._ws, sig, dec.feats, bf16=True, **kw)
+    torch.cuda.synchronize()
+    v = slice(0, w_valid)
+    b2_err = max(float((logits[m, v, :nc] - lp[m, v, :nc]).abs().max())
+                 for m, nc in enumerate(eng.n_classes))
+    agree = [_agreement(logits[m, v, :nc], lp[m, v, :nc])[0]
+             for m, nc in enumerate(eng.n_classes)]
+    check(bool(torch.isfinite(logits).all()), "trained weights: non-finite logits")
+    check(b2_err <= 0.05, f"stack_full on trained weights: max |dlogit| {b2_err}")
+    check(min(agree) >= 0.995, f"stack_full on trained weights: agreement {agree}")
+    del eng, dec, sig, logits, lp
+    torch.cuda.empty_cache()
+
+    # 6. the training reads revised through the CLI with the trained weights
+    kernels = (WINDOW_GATHER, rk.STACK_FULL, rk.STACK_WINDOWS)
+    for k in kernels:
+        k.launches = 0
+    rev_out = os.path.join(tmp, "train_revised")
+    rev_failed = os.path.join(tmp, "train_revised_failed.txt")
+    t0 = time.time()
+    rc = reviser_main(["-d", fast5_dir, "-o", rev_out, "-F", "fasta",
+                       "--revise_mode", "model", "--device", "cuda",
+                       "--model1_predict_dir", weights["model1"],
+                       "--model2_predict_dir", weights["model2"],
+                       "-e", rev_failed, "--thread", "8"])
+    rev_s = time.time() - t0
+    launches = {k.name: k.launches for k in kernels}
+    check(rc == 0 and not os.path.exists(rev_failed), f"revision of training reads rc {rc}")
+    check(len(os.listdir(rev_out)) == len(names), "revision: one file per read")
+    check(launches["window_gather"] == launches["stack_full"] > 0
+          and launches["stack_windows"] == 0, f"revision launches {launches}")
+
+    info = {"phase": "train", "reads": len(names), "data_seconds": round(data_s, 3),
+            "windows": int(corpus.n_windows), "label_mix": label_mix,
+            "label_ms_per_read": label_ms, "cli_seconds": cli_s,
+            "cli_epoch_seconds": epoch_s, "history": history,
+            "step_parity_card_vs_cpu": parity, "speed_batch512_t13": speed,
+            "dp_read_bases": len(q), "dp_card_seconds": card_s,
+            "dp_native_seconds": host_s, "dp_identical": True,
+            "trained_stack_full": {"windows": w_valid, "max_abs_dlogit_vs_bf16_plain": b2_err,
+                                   "argmax_agreement": agree},
+            "revision": {"reads": len(names), "seconds": rev_s, "launches": launches,
+                         "failed": 0},
+            "nvidia_smi": nvidia_smi_line()}
+    emit(info)
+    return info
+
+
 def main(argv: list) -> int:
     import torch
 
     import nanoreviser_torch  # noqa: F401 — fail before any output without it
 
     only = argv[0] if argv else None
-    check(argv in ([], ["--gather-only"], ["--cli-only"]), f"unknown arguments {argv}")
+    check(argv in ([], ["--gather-only"], ["--cli-only"], ["--train-only"]),
+          f"unknown arguments {argv}")
     info = phase_device()
     logs = phase_build()
     with tempfile.TemporaryDirectory() as tmp:
+        if only == "--train-only":
+            phase_train(tmp)
+            print(nvidia_smi_line(), flush=True)
+            return 0
         weights = make_weights(tmp)
         eng, dec, sig, tier, w_valid, fast5_dir, names, grow = phase_gather(tmp, weights)
         if only == "--cli-only":
@@ -939,6 +1360,8 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         phase_host(fast5_dir, names)
         launches = phase_e2e(tmp, weights, fast5_dir, names)
+        torch.cuda.empty_cache()
+        phase_train(tmp)
     rows = [grow] + srows
     for r in rows:
         r["launches"] = launches[r["name"]]

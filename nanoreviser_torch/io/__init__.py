@@ -1,4 +1,5 @@
 from .fast5 import ReadData, extract_fastq, get_read_data, list_fast5_files
+from .fasta import parse_fasta
 from .writers import (
     format_read_fasta,
     format_read_fastq,
@@ -17,4 +18,5 @@ __all__ = [
     "format_train_fasta",
     "write_read_fasta",
     "write_read_fastq",
+    "parse_fasta",
 ]

@@ -9,7 +9,8 @@ lstmmodel.py / nanorevcnn.py), which is why ``torch.nn.LSTM`` and
   hard_sigmoid ``clip(0.2x + 0.5, 0, 1)``; cell activation tanh.
 * Bidirectional: the backward pass consumes the flipped sequence and its
   output is flipped back, so both directions align per time step; concat.
-* BatchNormalization: eps=1e-3, last axis, moving statistics (inference).
+* BatchNormalization: eps=1e-3, last axis; moving statistics at inference,
+  the batch's biased moments in training.
 * Conv1D: 'same' padding, stride 1, ReLU applied before the following BN.
 
 Parameters are nested dicts of tensors with the JAX package's names and
@@ -63,6 +64,18 @@ def batch_norm(params: dict, x: torch.Tensor, eps: float = BN_EPS) -> torch.Tens
     """Inference-mode BN over the last axis with Keras eps=1e-3."""
     inv = torch.rsqrt(params["var"] + eps)
     return (x - params["mean"]) * inv * params["gamma"] + params["beta"]
+
+
+def batch_norm_train(params: dict, x: torch.Tensor,
+                     eps: float = BN_EPS) -> tuple[torch.Tensor, dict]:
+    """Training-mode BN: normalize by the batch moments over every axis but
+    the last; returns (y, {"mean", "var"}) for the moving-statistics update.
+    The variance is the biased one (``jnp.var``), not torch's default."""
+    axes = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=axes)
+    var = x.var(dim=axes, correction=0)
+    y = (x - mean) * torch.rsqrt(var + eps) * params["gamma"] + params["beta"]
+    return y, {"mean": mean, "var": var}
 
 
 def conv1d_relu(params: dict, x: torch.Tensor) -> torch.Tensor:

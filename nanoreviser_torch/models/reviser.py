@@ -1,4 +1,4 @@
-"""The reviser network, eager torch (inference only).
+"""The reviser network, eager torch (inference and training forward).
 
 Counterpart of ``nanoreviser_tpu/models/reviser.py`` (reference
 lstmmodel.py:32-133). model1 and model2 differ only in their class count
@@ -7,6 +7,7 @@ lstmmodel.py:32-133). model1 and model2 differ only in their class count
     signal [B,T,50,1] -> identity block (2x Conv1D(8,k=3,'same',relu)+BN,
                           residual add broadcasting the 1-channel input onto
                           the 8-channel conv output, reference nanorevcnn.py:37)
+                      -> (dropout 0.2, train only)
                       -> flatten per step [B,T,400] -> Dense(64) [B,T,64]
     read   [B,T,6]    -> BiLSTM(16) -> BN -> BiLSTM(64) -> BN   [B,T,128]
     concat            -> BiLSTM(128) -> BN -> BiLSTM(64)        [B,T,128]
@@ -27,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .layers import batch_norm, bilstm, conv1d_relu, dense
+from .layers import batch_norm, batch_norm_train, bilstm, conv1d_relu, dense
 
 
 @dataclass(frozen=True)
@@ -38,6 +39,7 @@ class ReviserConfig:
     n_classes: int = 6        # 6 for model1, 5 for model2
     conv_filters: int = 8
     conv_kernel: int = 3
+    dropout_rate: float = 0.2  # after the residual add, training only
 
 
 def params_from_numpy(params: dict, device="cpu", dtype=torch.float32) -> dict:
@@ -47,40 +49,69 @@ def params_from_numpy(params: dict, device="cpu", dtype=torch.float32) -> dict:
     return torch.tensor(np.asarray(params), dtype=dtype, device=device)
 
 
-def signal_branch(params: dict, signal: torch.Tensor, cfg: ReviserConfig) -> torch.Tensor:
-    """[B,T,S] or [B,T,S,1] -> [B,T,64] through the conv residual branch."""
+def _bn(params: dict, name: str, h: torch.Tensor, stats: dict | None) -> torch.Tensor:
+    """BN ``name`` on its moving statistics, or, given ``stats`` (training),
+    on the batch moments, which it records in ``stats[name]``."""
+    if stats is None:
+        return batch_norm(params[name], h)
+    y, stats[name] = batch_norm_train(params[name], h)
+    return y
+
+
+def signal_branch(params: dict, signal: torch.Tensor, cfg: ReviserConfig,
+                  stats: dict | None = None,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """[B,T,S] or [B,T,S,1] -> [B,T,64] through the conv residual branch.
+
+    With ``stats`` (a dict) it runs in training mode: its BNs normalize by
+    the batch moments, which go into ``stats``, and dropout follows the
+    residual add (mask drawn from ``generator``)."""
     if signal.dim() == 3:
         signal = signal[..., None]
     b, t, s, c = signal.shape
     x = signal.reshape(b * t, s, c)
-    h = batch_norm(params["bn_c1"], conv1d_relu(params["conv1"], x))
-    h = batch_norm(params["bn_c2"], conv1d_relu(params["conv2"], h))
+    h = _bn(params, "bn_c1", conv1d_relu(params["conv1"], x), stats)
+    h = _bn(params, "bn_c2", conv1d_relu(params["conv2"], h), stats)
     h = h + x  # residual: broadcasts the 1-channel input onto the filters
+    if stats is not None and cfg.dropout_rate > 0:
+        if generator is None:
+            raise ValueError("training with dropout needs a torch.Generator")
+        keep = 1.0 - cfg.dropout_rate
+        mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+        h = torch.where(mask, h / keep, 0.0)
     h = h.reshape(b, t, s * cfg.conv_filters)
     return dense(params["sig_dense"], h)
 
 
 def reviser_apply(params: dict, signal: torch.Tensor, feats: torch.Tensor,
-                  cfg: ReviserConfig | None = None):
-    """Inference forward. signal: [B, T, S(, 1)]; feats: [B, T, 6].
+                  cfg: ReviserConfig | None = None, *, train: bool = False,
+                  generator: torch.Generator | None = None):
+    """Forward pass. signal: [B, T, S(, 1)]; feats: [B, T, 6].
 
-    Returns (probs [B, n_classes], feature [B, 16])."""
+    Returns (probs [B, n_classes], feature [B, 16]); with ``train=True``
+    also the BN batch statistics, {name: {"mean", "var"}} for bn_c1,
+    bn_c2, bn_r1, bn_r2 and bn_t1, and dropout draws its mask from
+    ``generator``, a ``torch.Generator`` on the tensors' device."""
     if cfg is None:
         cfg = ReviserConfig(window=feats.shape[1],
                             n_classes=params["final_out"]["b"].shape[0])
-    sig_out = signal_branch(params, signal, cfg)
-    r = batch_norm(params["bn_r1"], bilstm(params["read_rnn1"], feats))
-    r = batch_norm(params["bn_r2"], bilstm(params["read_rnn2"], r))
+    stats = {} if train else None
+    sig_out = signal_branch(params, signal, cfg, stats, generator)
+    r = _bn(params, "bn_r1", bilstm(params["read_rnn1"], feats), stats)
+    r = _bn(params, "bn_r2", bilstm(params["read_rnn2"], r), stats)
     h = torch.cat([r, sig_out], dim=-1)
-    h = batch_norm(params["bn_t1"], bilstm(params["total_rnn1"], h))
+    h = _bn(params, "bn_t1", bilstm(params["total_rnn1"], h), stats)
     h = bilstm(params["total_rnn2"], h)
     h = dense(params["dense1"], h, torch.relu)
     h = dense(params["dense2"], h, torch.relu)
     main = dense(params["main_out"], h, torch.relu)           # [B,T,6]
     feature = dense(params["feature"], main.reshape(main.shape[0], -1),
                     torch.relu)                               # [B,16]
-    logits = dense(params["final_out"], feature).to(torch.float32)
-    return torch.softmax(logits, dim=-1), feature
+    probs = torch.softmax(dense(params["final_out"], feature).to(torch.float32),
+                          dim=-1)
+    if train:
+        return probs, feature, stats
+    return probs, feature
 
 
 class Reviser(torch.nn.Module):
@@ -167,8 +198,10 @@ def _dense_params(gen, d_in, d_out):
 def init_reviser_params(gen: torch.Generator, cfg: ReviserConfig) -> dict:
     """Random numpy parameter tree with Keras default initializers (glorot
     kernels, orthogonal recurrent kernels, zero biases except forget gates
-    at 1, identity BN). Counterpart of the JAX ``init_reviser_params``; the
-    draws come from ``gen`` and differ from JAX's."""
+    at 1, identity BN) plus the center-loss ``centers`` [n_classes, 16],
+    which the serving path ignores. Counterpart of the JAX
+    ``init_reviser_params``; the draws come from ``gen`` and differ from
+    JAX's."""
     f = cfg.conv_filters
     return {
         "conv1": {"w": _glorot(gen, (cfg.conv_kernel, 1, f)),
@@ -190,7 +223,20 @@ def init_reviser_params(gen: torch.Generator, cfg: ReviserConfig) -> dict:
         "main_out": _dense_params(gen, 32, 6),
         "feature": _dense_params(gen, cfg.window * 6, 16),
         "final_out": _dense_params(gen, 16, cfg.n_classes),
+        # center-loss class centers (Keras Embedding init: uniform +-0.05),
+        # drawn last and from a copy of gen, so that gen, every weight above
+        # and every draw made from gen after this call stay as they were
+        # before the train path needed centers
+        "centers": (0.05 * (2.0 * torch.rand(
+            (cfg.n_classes, 16), generator=_copy(gen), dtype=torch.float64)
+            - 1.0)).numpy().astype(np.float32),
     }
+
+
+def _copy(gen: torch.Generator) -> torch.Generator:
+    g = torch.Generator(device=gen.device)
+    g.set_state(gen.get_state())
+    return g
 
 
 def randomize_inference_stats(params: dict, gen: torch.Generator) -> dict:

@@ -1,15 +1,18 @@
 """ctypes bindings of the host library (``src/nanorev.cpp``).
 
-Counterpart of ``nanoreviser_tpu/native/__init__.py:160-385``, for the
-three entries the serving path calls:
+Counterpart of ``nanoreviser_tpu/native/__init__.py:60-385``, for the
+three entries the serving path calls and the training labeller's aligner:
 
 * ``prep_read_native_arrays``    - windowed prep (``prep_read_numpy``);
 * ``compact_read_native_arrays`` - compaction (``compact_read_numpy``);
-* ``encode_wire_native``         - wire encode (``infer.wire.encode_read``).
+* ``encode_wire_native``         - wire encode (``infer.wire.encode_read``);
+* ``banded_sw_native``           - the banded aligner
+                                   (``align.sw.banded_sw_torch``).
 
-Each is bit-exact with its numpy twin (``tests/test_torch_native.py``) and
-runs with the GIL released. The library is built by g++ and loaded at the
-first call, never at import (``native.build``); a build that fails raises.
+Each is exact with its twin (``tests/test_torch_native.py``,
+``tests/test_torch_align.py``) and runs with the GIL released. The library
+is built by g++ and loaded at the first call, never at import
+(``native.build``); a build that fails raises.
 A call the library refuses raises :class:`NativeError` with its return
 code; ``CAPACITY`` (-2) means a caller's output buffer was too small.
 """
@@ -42,6 +45,14 @@ _SIGNATURES = {
         _P, _I64, _P, _I64, _P, _P, _P, _P, ctypes.c_int, _DBL_P, _DBL_P,
         _P, _I64,                 # csig, capacity
         _P, _P, _P,               # pos0, vlen, feats
+    ]),
+    "nr_banded_sw": (ctypes.c_int, [
+        _P, _I64,                 # q, m
+        _P, _I64,                 # t, n
+        ctypes.c_int, _I64, _I64,  # band, t_lead, t_tail
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        _P, _I64,                 # ops_out, capacity
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_float),
     ]),
     "nr_encode_wire": (ctypes.c_int64, [
         _P, _I64,                 # csig, m
@@ -241,3 +252,25 @@ def encode_wire_native(c, out: dict) -> tuple[int, int, int, int]:
     if rc != 0:
         raise NativeError("nr_encode_wire", rc)
     return int(counts[0]), int(counts[1]), int(counts[2]), int(counts[3])
+
+
+def banded_sw_native(q_codes, t_codes, band: int = 512, t_lead: int = 0,
+                     t_tail: int = 0, match: float = 2.0, mismatch: float = -3.0,
+                     gap_open: float = -5.0, gap_extend: float = -2.0):
+    """(ops int8 [K], j_start, score) of the banded glocal alignment of base
+    codes ``q_codes`` against ``t_codes`` by ``nr_banded_sw``."""
+    lib = load()
+    q = np.ascontiguousarray(q_codes, np.int8)
+    t = np.ascontiguousarray(t_codes, np.int8)
+    if len(q) < 1 or len(t) < 1 or band < 4:
+        raise ValueError(f"banded_sw_native: m={len(q)}, n={len(t)}, band={band}")
+    ops = np.empty(len(q) + len(t) + 4, np.int8)
+    j_start = ctypes.c_int64()
+    score = ctypes.c_float()
+    n_ops = lib.nr_banded_sw(
+        q.ctypes.data, len(q), t.ctypes.data, len(t), band, t_lead, t_tail,
+        match, mismatch, gap_open, gap_extend, ops.ctypes.data, len(ops),
+        ctypes.byref(j_start), ctypes.byref(score))
+    if n_ops < 0:
+        raise NativeError("nr_banded_sw", n_ops)
+    return ops[:n_ops].copy(), int(j_start.value), float(score.value)

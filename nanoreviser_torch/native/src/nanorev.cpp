@@ -1,15 +1,18 @@
-// Host-side per-read preparation for the serving path, in C++.
+// Host-side per-read preparation for the serving path and the training
+// labeller's banded aligner, in C++.
 //
 // The port's own copy of the parts of nanoreviser_tpu/native/src/nanorev.cpp
-// that model-path revision calls (helpers :36-146, nr_prep_read :280,
-// nr_compact_read :382, nr_encode_wire :793-887). The aligner and the HDF5
-// ingest are not here.
+// that model-path revision and training call (helpers :36-151, the banded
+// aligner nr_banded_sw :162-255, nr_prep_read :280, nr_compact_read :382,
+// nr_encode_wire :793-887). The HDF5 ingest is not here.
 //
 // Every entry mirrors a numpy function of the package bit for bit:
 //   nr_prep_read    signal/host_prep.prep_read_numpy (inside each row's
 //                   valid window span; the pad columns are zero here)
 //   nr_compact_read signal/host_prep.compact_read_numpy
 //   nr_encode_wire  infer/wire.encode_read
+//   nr_banded_sw    align/sw.banded_sw_torch (ops, j_start and score equal;
+//                   its f32 score arithmetic keeps the JAX scan's order)
 // All float math follows the numpy path operation for operation (f64
 // divisions, one rounding from f64 to f16), so the library must be built
 // with -ffp-contract=off: a fused multiply-add in s2/cnt - mean*mean would
@@ -128,9 +131,120 @@ struct DurTable {
 };
 const DurTable kDur;
 
+// The aligner's score floor and 2-bit move codes (align/sw.py).
+constexpr float NEG_INF = -1.0e9f;
+constexpr int DIAG = 0, UP = 1, LEFT = 2;
+
+// Band centre line of the aligner: the target column of row i,
+// interpolated from t_lead across the read (align/sw.py _band_line).
+inline int64_t j0_line(int64_t i, int64_t m, int64_t t_lead, int64_t span) {
+    return t_lead + (span * i) / (m > 1 ? m : 1);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Banded glocal alignment (read global, target local).
+//   q, t     : base codes (A,C,G,T -> 0..3; anything else 4)
+//   band     : band width (multiple of 4)
+//   t_lead/t_tail : expected unaligned target overhangs (seed margins)
+//   ops_out  : caller buffer of at least m + n bytes; moves in forward order
+//   returns  : number of ops written, or -1 on error
+int nr_banded_sw(
+    const int8_t* q, int64_t m,
+    const int8_t* t, int64_t n,
+    int band, int64_t t_lead, int64_t t_tail,
+    float match, float mismatch, float gap_open, float gap_extend,
+    int8_t* ops_out, int64_t ops_cap,
+    int64_t* j_start_out, float* score_out) {
+    if (m < 1 || n < 1 || band < 4) return -1;
+
+    const int half = band / 2;
+    const int64_t span = std::max<int64_t>(n - t_lead - t_tail, 1);
+
+    std::vector<float> h_prev(band), h_row(band), e_prev(band), e_row(band);
+    std::vector<uint8_t> moves(static_cast<size_t>(m) * band, 0);
+
+    // row 0: free leading target gap — H(0,j) = sub(q0, t_j)
+    for (int k = 0; k < band; ++k) {
+        int64_t j = j0_line(0, m, t_lead, span) + k - half;
+        bool valid = j >= 0 && j < n;
+        float sub = (valid && q[0] == t[j]) ? match : mismatch;
+        h_prev[k] = valid ? sub : NEG_INF;
+        e_prev[k] = NEG_INF;
+    }
+
+    for (int64_t i = 1; i < m; ++i) {
+        const int64_t jc = j0_line(i, m, t_lead, span);
+        const int64_t shift = jc - j0_line(i - 1, m, t_lead, span);
+        uint8_t* mrow = moves.data() + static_cast<size_t>(i) * band;
+
+        // in-row left-gap prefix max: run = max_{k'<=k} (h_nf(k') - k'*ext)
+        float run = NEG_INF;
+        for (int k = 0; k < band; ++k) {
+            const int64_t sd = k + shift;
+            const float h_diag =
+                (sd - 1 >= 0 && sd - 1 < band) ? h_prev[sd - 1] : NEG_INF;
+            const float h_up = (sd >= 0 && sd < band) ? h_prev[sd] : NEG_INF;
+            const float e_up = (sd >= 0 && sd < band) ? e_prev[sd] : NEG_INF;
+
+            const int64_t j = jc + k - half;
+            const bool valid_j = j >= 0 && j < n;
+            const float sub =
+                (valid_j && q[i] == t[j]) ? match : mismatch;
+
+            const float diag_score = h_diag + sub;
+            const float e = std::max(h_up + gap_open, e_up + gap_extend);
+            const float h_nf =
+                valid_j ? std::max(diag_score, e) : NEG_INF;
+
+            // f32 op order matches align/sw.py: (open + k*ext) + p_excl
+            const float f = (gap_open + (float)k * gap_extend) + run;
+            const float h = valid_j ? std::max(h_nf, f) : NEG_INF;
+
+            run = std::max(run, h_nf - (float)k * gap_extend);
+
+            h_row[k] = h;
+            e_row[k] = e;
+            mrow[k] = (h == diag_score) ? DIAG : ((h == e) ? UP : LEFT);
+        }
+        h_prev.swap(h_row);
+        e_prev.swap(e_row);
+    }
+
+    // end column: first argmax on the true last row
+    int k_end = 0;
+    float best = h_prev[0];
+    for (int k = 1; k < band; ++k) {
+        if (h_prev[k] > best) { best = h_prev[k]; k_end = k; }
+    }
+    *score_out = best;
+
+    // traceback (mirrors _traceback_host)
+    std::vector<int8_t> rev;
+    rev.reserve(m + 16);
+    int64_t i = m - 1;
+    int64_t j = j0_line(i, m, t_lead, span) + k_end - half;
+    while (i > 0) {
+        const int64_t k = j - j0_line(i, m, t_lead, span) + half;
+        if (k < 0 || k >= band) {
+            while (i > 0) { rev.push_back(DIAG); --i; --j; }
+            break;
+        }
+        const int mv = moves[static_cast<size_t>(i) * band + k];
+        if (mv == DIAG)      { rev.push_back(DIAG); --i; --j; }
+        else if (mv == UP)   { rev.push_back(UP);   --i; }
+        else                 { rev.push_back(LEFT); --j; }
+    }
+    rev.push_back(DIAG);  // row 0 consumes (q[0], t[j])
+
+    const int64_t n_ops = static_cast<int64_t>(rev.size());
+    if (n_ops > ops_cap) return -1;
+    for (int64_t p = 0; p < n_ops; ++p) ops_out[p] = rev[n_ops - 1 - p];
+    *j_start_out = j;
+    return static_cast<int>(n_ops);
+}
 
 // Windowed prep of one read (prep_read_numpy).
 //   tail      : int16 raw signal from read_start_rel_to_raw on          [S]

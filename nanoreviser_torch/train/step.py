@@ -1,0 +1,141 @@
+"""One training step: forward in train mode, loss, backward, Adam, then the
+BN moving statistics.
+
+Counterpart of ``nanoreviser_tpu/train/step.py:27-94``, in plain PyTorch
+with autograd: the JAX package trains in plain XLA (no Pallas kernel, no
+custom gradient), so the port has no hand-written kernel here either.
+
+* Optimizer: Adam with Keras-2.2.4 defaults (lr 1e-3, betas (0.9, 0.999),
+  eps 1e-7 = K.epsilon(); torch's default eps is 1e-8). Its update
+  m_hat / (sqrt(v_hat) + eps) is optax's.
+* BN moving statistics live in the parameter tree but are not trained:
+  their JAX gradient is identically zero (the train-mode forward uses batch
+  moments), so here they carry no grad and stay out of the optimizer. After
+  the optimizer step they move with Keras' momentum 0.99.
+* Pad rows (weight 0) take part in the BN batch moments, as in JAX, which
+  normalizes over the whole padded batch; only the loss masks them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.reviser import ReviserConfig, reviser_apply
+from .loss import reviser_loss
+
+BN_KEYS = ("bn_c1", "bn_c2", "bn_r1", "bn_r2", "bn_t1")
+KERAS_BN_MOMENTUM = 0.99
+
+
+def default_class_weights(n_classes: int) -> np.ndarray:
+    """Reference class weights {0:3, 1:5, rest:1} (NanoReviser_train.py:167)."""
+    w = np.ones(n_classes, np.float32)
+    w[0] = 3.0
+    if n_classes > 1:
+        w[1] = 5.0
+    return w
+
+
+def param_leaves(tree: dict, prefix=()):
+    """(path, leaf) of a parameter tree in sorted path order, so that the
+    optimizer's parameter order does not depend on how the tree was built."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from param_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def is_trained(path: tuple) -> bool:
+    """False for the BN moving statistics, True for every other leaf."""
+    return not (path[0] in BN_KEYS and path[-1] in ("mean", "var"))
+
+
+def params_to_torch(params: dict, device, dtype=torch.float32) -> dict:
+    """Numpy (or tensor) parameter tree -> tensors of ``dtype`` on
+    ``device``, the trained leaves requiring grad. Training runs in f32;
+    f64 serves the parity checks."""
+    out: dict = {}
+    for path, leaf in param_leaves(params):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu()
+        t = torch.as_tensor(np.asarray(leaf)).to(device=device, dtype=dtype).clone()
+        node[path[-1]] = t.requires_grad_(is_trained(path))
+    return out
+
+
+def params_to_numpy(params: dict) -> dict:
+    out: dict = {}
+    for path, leaf in param_leaves(params):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf.detach().cpu().numpy()
+    return out
+
+
+def keras_adam(params: dict, learning_rate: float = 1e-3) -> torch.optim.Adam:
+    """Adam over the trained leaves of a tensor tree, Keras-2.2.4 settings."""
+    trained = [leaf for path, leaf in param_leaves(params) if is_trained(path)]
+    return torch.optim.Adam(trained, lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-7)
+
+
+def update_moving_stats(params: dict, stats: dict,
+                        momentum: float = KERAS_BN_MOMENTUM) -> None:
+    """Keras' moving-statistics update, in place: s = s*m + batch*(1 - m)."""
+    with torch.no_grad():
+        for key in BN_KEYS:
+            for k in ("mean", "var"):
+                s = params[key][k]
+                s.copy_(s * momentum + stats[key][k] * (1 - momentum))
+
+
+def make_train_step(
+    cfg: ReviserConfig,
+    class_weights: np.ndarray | None = None,
+    center_loss_weight: float = 0.4,
+    bn_momentum: float = KERAS_BN_MOMENTUM,
+):
+    """Returns ``train_step(params, optimizer, batch, generator=None) ->
+    (metrics, stats)``.
+
+    ``params`` is a tensor tree from ``params_to_torch`` and ``optimizer``
+    a ``keras_adam`` over it; both are updated in place, and each trained
+    leaf's ``.grad`` holds this step's gradient afterwards. ``batch``:
+    {"signal": [B,T,50], "feats": [B,T,6], "y": [B], "weight": [B]
+    (optional)} on the params' device. ``generator`` draws the dropout mask
+    (needed while ``cfg.dropout_rate`` > 0). ``metrics`` ("loss",
+    "ce_loss", "center_loss", "accuracy") and ``stats`` (the BN batch
+    moments) are detached tensors on the device: nothing here waits for
+    the card.
+    """
+    if class_weights is None:
+        class_weights = default_class_weights(cfg.n_classes)
+    cw_host = torch.as_tensor(np.asarray(class_weights), dtype=torch.float32)
+    cw_on: dict = {}
+
+    def train_step(params, optimizer, batch, generator=None):
+        dev = batch["signal"].device
+        if dev not in cw_on:
+            cw_on[dev] = cw_host.to(dev)
+        optimizer.zero_grad(set_to_none=True)
+        probs, feature, stats = reviser_apply(
+            params, batch["signal"], batch["feats"], cfg, train=True,
+            generator=generator)
+        loss, metrics = reviser_loss(
+            probs, feature, params["centers"], batch["y"], cw_on[dev],
+            center_loss_weight, sample_weight=batch.get("weight"))
+        loss.backward()
+        optimizer.step()
+        stats = {k: {m: v.detach() for m, v in s.items()} for k, s in stats.items()}
+        update_moving_stats(params, stats, bn_momentum)
+        metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+        return metrics, stats
+
+    return train_step

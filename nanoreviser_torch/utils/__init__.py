@@ -1,3 +1,4 @@
+from .files import model_fn_generate, summary_generate, write_summary_file
 from .logging import logger_config
 
 
@@ -8,4 +9,5 @@ def check_path(path: str) -> None:
     os.makedirs(str(path), exist_ok=True)
 
 
-__all__ = ["logger_config", "check_path"]
+__all__ = ["logger_config", "check_path", "model_fn_generate", "summary_generate",
+           "write_summary_file"]

@@ -15,6 +15,10 @@ and for batches that end inside a block of 16 windows), and the engine's
 labels on the card against the
 CPU engine's f32 labels (agreement >= 0.98), at small sizes; and they check
 that the engine's device step never makes the host wait for the card.
+For training, one train step on the card against the CPU (the bars of
+tests/test_torch_train_step.py), a step and a batch upload that never make
+the host wait, and the aligner's torch DP on the card against the host
+library's (identical ops, j_start and score).
 """
 
 import numpy as np
@@ -221,3 +225,117 @@ def test_device_step_never_waits_for_the_device(tmp_path):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _train_case(n_classes, t=13, b=128, seed=0):
+    """Numpy params (randomized BN statistics) and a batch with pad rows."""
+    from nanoreviser_torch.models import ReviserConfig, init_reviser_params
+    from nanoreviser_torch.models.reviser import randomize_inference_stats
+
+    gen = torch.Generator().manual_seed(seed + n_classes)
+    p = randomize_inference_stats(
+        init_reviser_params(gen, ReviserConfig(window=t, n_classes=n_classes)), gen)
+    rng = np.random.default_rng(seed)
+    w = np.ones(b, np.float32)
+    w[-7:] = 0.0
+    batch = {"signal": rng.normal(0, 1, (b, t, 50)).astype(np.float32),
+             "feats": rng.normal(0.5, 0.3, (b, t, 6)).astype(np.float32),
+             "y": rng.integers(-1, n_classes, b).astype(np.int64), "weight": w}
+    return p, batch
+
+
+def _run_step(p, batch, n_classes, dev, dtype, t=13):
+    from nanoreviser_torch.models import ReviserConfig
+    from nanoreviser_torch.train.step import keras_adam, make_train_step, params_to_torch
+
+    params = params_to_torch(p, dev, dtype)
+    opt = keras_adam(params, 1e-3)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    tb = {k: v.to(dtype) if v.is_floating_point() else v for k, v in tb.items()}
+    metrics, stats = make_train_step(ReviserConfig(window=t, n_classes=n_classes,
+                                                   dropout_rate=0.0))(params, opt, tb)
+    return metrics, stats, params
+
+
+@pytest.mark.parametrize("n_classes", [6, 5])
+def test_train_step_on_card_matches_cpu(n_classes):
+    """One step from the same params and batch, dropout and TF32 off, at
+    T = 13: in f64 every bar per element; in f32 the gradient bar on each
+    tensor's largest element (tests/test_torch_train_step.py says why)."""
+    from nanoreviser_torch.train.step import BN_KEYS, param_leaves
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p, batch = _train_case(n_classes)
+    for dtype in (torch.float64, torch.float32):
+        mc, sc, pc = _run_step(p, batch, n_classes, "cpu", dtype)
+        mg, sg, pg = _run_step(p, batch, n_classes, dev, dtype)
+        np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]), rtol=1e-5)
+        n_el = n_close = 0
+        cpu_leaves = dict(param_leaves(pc))
+        for path, leaf in param_leaves(pg):
+            want = cpu_leaves[path]
+            if leaf.grad is not None:
+                g, gw = leaf.grad.cpu().numpy(), want.grad.numpy()
+                d = np.abs(g - gw)
+                if dtype == torch.float64:
+                    assert (d <= 1e-6 + 1e-4 * np.abs(gw)).all(), path
+                else:
+                    assert d.max() <= 1e-6 + 1e-4 * np.abs(gw).max(), path
+                dp = np.abs(leaf.detach().cpu().numpy() - want.detach().numpy())
+                assert dp.max() <= 2e-3, path
+                n_el += dp.size
+                n_close += int((dp <= 1e-5).sum())
+            else:                                # moving statistics
+                np.testing.assert_allclose(leaf.cpu().numpy(), want.numpy(),
+                                           rtol=1e-6, atol=1e-6, err_msg=str(path))
+        assert n_close >= 0.99 * n_el
+        for key in BN_KEYS:
+            for m in ("mean", "var"):
+                np.testing.assert_allclose(sg[key][m].cpu().numpy(), sc[key][m].numpy(),
+                                           rtol=1e-5, atol=1e-5)
+
+
+def test_train_step_never_waits_for_the_device():
+    """The upload of a batch from pinned memory and a whole train step
+    (dropout on) only queue work on the card."""
+    from nanoreviser_torch.models import ReviserConfig
+    from nanoreviser_torch.train.loop import _uploader
+    from nanoreviser_torch.train.step import keras_adam, make_train_step, params_to_torch
+
+    dev = _card()
+    p, batch = _train_case(6, b=64)
+    params = params_to_torch(p, dev)
+    opt = keras_adam(params, 1e-3)
+    step = make_train_step(ReviserConfig(window=13, n_classes=6))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    up = _uploader(dev)
+    step(params, opt, up(batch), gen)            # allocates Adam's state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics, _ = step(params, opt, up(batch), gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_torch_dp_on_card_matches_native():
+    from nanoreviser_torch.align import sw
+
+    dev = _card()
+    rng = np.random.default_rng(5)
+    for k in range(3):
+        ref = "".join(rng.choice(list("ACGT"), 1500))
+        read = "".join(c if rng.random() > 0.08 else "ACGT"[rng.integers(4)]
+                       for c in ref[100 + k : 1400 - k] if rng.random() > 0.03)
+        for band in (128, 512):
+            got = sw.align_banded(read, ref, band=band, t_lead=100, t_tail=100,
+                                  backend="torch", device=dev)
+            want = sw.align_banded(read, ref, band=band, t_lead=100, t_tail=100,
+                                   backend="native")
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1:] == want[1:]
+    got = sw.align_banded("G", "ACGTTGCA" * 40, band=16, backend="torch", device=dev)
+    assert got[1:] == sw.align_banded("G", "ACGTTGCA" * 40, band=16)[1:]
