@@ -5,6 +5,9 @@
     python3 chip_smoke.py --cli-only      # device, build, gather, e2e's CLI runs
     python3 chip_smoke.py --train-only    # device, build, train
 
+(``--dp-step`` runs one worker process of phase train's data-parallel
+step; the script starts those itself.)
+
 ``--gather-only`` times the window gather, ``--cli-only`` the CLI runs of
 phase e2e and ``--train-only`` the training path, of whatever package sits
 beside this file, so a copy of it in an older checkout times that checkout
@@ -79,7 +82,12 @@ Phases, each printing one JSON line:
              processes on the one card (--num_processes 2, --merged_output,
              --align center): the merged fasta must be byte-identical to a
              one-process --merged_output run's.
-8. train   - the training path at the model's full width and the CLI's
+8. basecaller - the reviser CLI's --revise_mode basecaller over the 40
+             reads in fastq: with a stub basecaller that this script writes,
+             every read is rebasecalled and its file must hold the stub's
+             fastq trimmed 13/13; without the binary, every read degrades to
+             the embedded fastq trimmed 7/7, is listed in -e, and rc is 1.
+9. train   - the training path at the model's full width and the CLI's
              defaults (batch 512, T = 13): 8 synthetic reads of ~10k bases
              and a genome of their bases with ~2% substitutions and short
              indels; ``python -m nanoreviser_torch.cli.train`` on the card
@@ -91,7 +99,18 @@ Phases, each printing one JSON line:
              rtol 1e-4 / atol 1e-6, BN batch moments 1e-5, moving
              statistics 1e-6, params within 2*lr and >= 99% within 1e-5)
              and in f32 (the same, the gradient bar on each tensor's
-             largest element); forward, backward and optimizer ms per step
+             largest element); data parallel on the one card: one step
+             (dropout on, the batch's last fifth of rows pads, all in process 1's
+             half) as two processes (``--dp-step`` workers, gloo) against
+             one, in f64 per element (rtol 1e-4, atol 1e-6) and in f32 at
+             the f32 one-step bars above, then ``cli.train -c 2 -e 1`` (both
+             models, batch 512) as two processes against one with identical
+             flags, and the one-process run again: equal label caches, each
+             artifact written once and by process 0, the epoch's loss within
+             1e-3 relative, params within 2*lr per step; val_loss and the
+             params' differences reported beside the repeated one-process
+             run's (f32 drift), and steps/s of each;
+             forward, backward and optimizer ms per step
              from CUDA events, peak memory, and one timed epoch of
              train_model per model (steps/s, windows/s); the torch DP on
              the card against nr_banded_sw on one read (identical ops,
@@ -1140,6 +1159,351 @@ def _profile_steps(params, opt, cfg, gen, batches) -> dict:
             "busy_share": busy_us / wall_us, "device_events_per_step": len(dev) / len(batches)}
 
 
+STUB_BASECALLER = """#!{python}
+import argparse, os
+p = argparse.ArgumentParser()
+p.add_argument("--input_path", required=True)
+p.add_argument("--save_path", required=True)
+p.add_argument("--config", required=True)
+a = p.parse_args()
+fast5s = [f for f in os.listdir(a.input_path) if f.endswith(".fast5")]
+assert len(fast5s) == 1, fast5s
+stem = fast5s[0].split(".")[0]
+seq = "".join("ACGT"[(ord(c) + i) % 4] for i, c in enumerate(stem * 20))
+qual = "".join(chr(33 + (7 * i + ord(c)) % 40) for i, c in enumerate(seq))
+with open(os.path.join(a.save_path, "stub.fastq"), "w") as fp:
+    fp.write("@stub\\n" + "N" * 13 + seq + "N" * 12 + "\\n+\\n"
+             + "!" * 13 + qual + "!" * 12 + "\\n")
+"""
+
+
+def stub_fastq(stem: str) -> tuple[str, str]:
+    """What the stub basecaller's fastq holds once trimmed 13/13."""
+    seq = "".join("ACGT"[(ord(c) + i) % 4] for i, c in enumerate(stem * 20))
+    qual = "".join(chr(33 + (7 * i + ord(c)) % 40) for i, c in enumerate(seq))
+    return seq, qual
+
+
+def phase_basecaller(tmp: str, fast5_dir: str, names: list) -> dict:
+    """The reviser CLI's basecaller mode over the 40 reads in fastq: with a
+    stub basecaller written here, every read is rebasecalled and its file
+    holds the stub's trimmed fastq; without the binary, every read
+    degrades to the embedded fastq trimmed 7/7, is listed in -e, and rc is
+    1."""
+    from nanoreviser_torch.cli.reviser import main as cli_main
+    from nanoreviser_torch.io import extract_fastq
+    from nanoreviser_torch.io.writers import format_read_fastq
+
+    exe = os.path.join(tmp, "bc_bin", "basecaller")
+    os.makedirs(os.path.dirname(exe))
+    with open(exe, "w") as fp:
+        fp.write(STUB_BASECALLER.replace("{python}", sys.executable))
+    os.chmod(exe, 0o755)
+    runs = {}
+    for tag, path in (("stub", exe), ("no_binary", os.path.join(tmp, "bc_none", "basecaller"))):
+        out, failed = os.path.join(tmp, f"bc_out_{tag}"), os.path.join(tmp, f"bc_failed_{tag}.txt")
+        t0 = time.time()
+        rc = cli_main(["-d", fast5_dir, "-o", out, "-F", "fastq", "--revise_mode", "basecaller",
+                       "--basecaller_exe", path, "-t", os.path.join(tmp, f"bc_tmp_{tag}"),
+                       "-e", failed, "--thread", "8"])
+        secs = time.time() - t0
+        check(sorted(os.listdir(out)) == sorted(n.split(".")[0] + "_out.fastq" for n in names),
+              f"basecaller {tag}: one file per read")
+        for n in names:
+            stem = n.split(".")[0]
+            want = stub_fastq(stem) if tag == "stub" else extract_fastq(os.path.join(fast5_dir, n))
+            got = open(os.path.join(out, stem + "_out.fastq")).read()
+            check(got == format_read_fastq(n, *want), f"basecaller {tag}: {n} output")
+        if tag == "stub":
+            check(rc == 0 and not os.path.exists(failed), f"basecaller with the stub: rc {rc}")
+        else:
+            listed = sorted(ln.split("\t")[0] for ln in open(failed).read().splitlines())
+            check(rc == 1 and listed == sorted(names),
+                  f"basecaller without a binary: rc {rc}, {len(listed)} reads in -e")
+        runs[tag] = {"rc": rc, "seconds": secs, "reads_per_s": len(names) / secs}
+    info = {"phase": "basecaller", "reads": len(names), "runs": runs,
+            "stub_output_identical": True, "degraded_output_identical": True}
+    emit(info)
+    return info
+
+
+# runs the training CLI with its artifact writers logging (process, path)
+WRITE_LOGGER = """
+import os, sys
+import nanoreviser_torch.models as models
+import nanoreviser_torch.train.loop as loop
+import nanoreviser_torch.utils.files as files
+rank = sys.argv[sys.argv.index("--process_id") + 1]
+
+def logged(fn, *positions):
+    def write(*args, **kwargs):
+        with open(os.environ["WRITE_LOG"], "a") as fp:
+            for i in positions:
+                fp.write(rank + "\\t" + str(args[i]) + "\\n")
+        return fn(*args, **kwargs)
+    return write
+
+models.save_keras_weights = logged(models.save_keras_weights, 1)
+loop.save_params_npz = logged(loop.save_params_npz, 1)
+loop.save_checkpoint = logged(loop.save_checkpoint, 0)
+files.write_summary_file = logged(files.write_summary_file, 2, 3)
+from nanoreviser_torch.cli.train import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def _run_all(procs: list, timeout: int) -> list:
+    """Each process's output; every process is ended before this returns."""
+    try:
+        return [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _epoch_seconds(stdout: str) -> list:
+    return [float(ln.rsplit("(", 1)[1].rstrip("s)")) for ln in stdout.splitlines()
+            if ln.startswith("[p:::] epoch")]
+
+
+def _dp_step(species: str, mesh, dtype) -> dict:
+    """One train step in ``dtype`` on the card, dropout on, batch 512 at
+    T = 13, from model1's trained params on the first batch of the corpus
+    with its last fifth of rows made pads (all in process 1's half over two
+    processes)."""
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.dist import local_batch_slice
+    from nanoreviser_torch.models import ReviserConfig
+    from nanoreviser_torch.train.data import BatchIterator, load_training_corpus
+    from nanoreviser_torch.train.loop import load_params_npz
+    from nanoreviser_torch.train.step import (
+        is_trained, keras_adam, make_train_step, param_leaves, params_to_torch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    corpus = load_training_corpus(os.path.join(species, "training_input"), TRAIN_WINDOW)
+    p1 = load_params_npz(os.path.join(species, f"smoke_win{TRAIN_WINDOW}_2ep_model1.npz"))
+    batch = next(BatchIterator(corpus.feats, corpus.signal, corpus.y, TRAIN_BATCH, 0.01,
+                               SEED, window=TRAIN_WINDOW).epoch())
+    batch["weight"][-(TRAIN_BATCH // 5):] = 0.0
+    denom = max(float(batch["weight"].sum()), 1.0)
+    if mesh is not None:
+        batch = local_batch_slice(batch, mesh.rank, mesh.world)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+    batch = {k: v.to(dtype) if v.is_floating_point() else v.long() for k, v in batch.items()}
+    params = params_to_torch(p1, dev, dtype)
+    opt = keras_adam(params, TRAIN_LR)
+    cfg = ReviserConfig(window=TRAIN_WINDOW, n_classes=6)
+    metrics, stats = make_train_step(cfg, mesh=mesh)(
+        params, opt, batch, torch.Generator(device=dev).manual_seed(SEED),
+        denominator=denom if mesh is not None else None)
+    out = {"loss": metrics["loss"].cpu().numpy()}
+    for key, st in stats.items():
+        for m, v in st.items():
+            out[f"stats/{key}/{m}"] = v.cpu().numpy()
+    for path, leaf in param_leaves(params):
+        out["param/" + "/".join(path)] = leaf.detach().cpu().numpy()
+        if is_trained(path):
+            out["grad/" + "/".join(path)] = leaf.grad.cpu().numpy()
+    return out
+
+
+def dp_step_worker(argv: list) -> int:
+    """``chip_smoke.py --dp-step <coordinator> <rank> <species dir> <out.npz>``:
+    one of two processes of ``_dp_step`` on the card, in f64 and in f32."""
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch import dist
+    from nanoreviser_torch.parallel import make_mesh
+
+    coord, rank, species, out = argv[0], int(argv[1]), argv[2], argv[3]
+    dist.initialize(coord, 2, rank)
+    mesh = make_mesh("cuda")
+    check(mesh.backend == "gloo", f"two processes on one card chose {mesh.backend}")
+    res = {}
+    for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        res.update({f"{tag}/{k}": v for k, v in _dp_step(species, mesh, dtype).items()})
+    np.savez(out, **res)
+    dist.shutdown()
+    return 0
+
+
+def _dp_step_ratios(r0: dict, r1: dict, one: dict, tag: str) -> dict:
+    """Worst ratio of each difference (two processes' step against one
+    process's) to its bar; a ratio <= 1 passes. f64: every loss, moment,
+    gradient and param per element (rtol 1e-4, atol 1e-6). f32: the
+    one-step f32 bars (``_step_parity``): loss 1e-5 relative, BN moments
+    1e-5, moving statistics 1e-6, each gradient tensor on its largest
+    element, params within 2*lr and >= 99% within 1e-5."""
+    import numpy as np
+
+    r = {"loss": 0.0, "bn_batch_stats": 0.0, "grads": 0.0, "moving_stats": 0.0,
+         "params_2lr": 0.0}
+    n_el = n_close = 0
+    for key, want in one.items():
+        key2 = f"{tag}/{key}"
+        check(np.array_equal(r0[key2], r1[key2]), f"dp step {tag}: {key} differs "
+              "between the processes")
+        d = np.abs(r0[key2] - want)
+        if tag == "f64":
+            r["grads"] = max(r["grads"], float((d / (1e-6 + 1e-4 * np.abs(want))).max()))
+        elif key == "loss":
+            r["loss"] = max(r["loss"], float(d.max()) / (1e-5 * abs(float(want))))
+        elif key.startswith("stats/"):
+            r["bn_batch_stats"] = max(r["bn_batch_stats"], float(
+                (d / (1e-5 + 1e-5 * np.abs(want))).max()))
+        elif key.startswith("grad/"):
+            r["grads"] = max(r["grads"], float(d.max()) / (
+                1e-6 + 1e-4 * float(np.abs(want).max())))
+        elif "grad/" + key[len("param/"):] in one:
+            r["params_2lr"] = max(r["params_2lr"], float(d.max()) / (2 * TRAIN_LR))
+            n_el += d.size
+            n_close += int((d <= 1e-5).sum())
+        else:
+            r["moving_stats"] = max(r["moving_stats"], float(
+                (d / (1e-6 + 1e-6 * np.abs(want))).max()))
+    if tag == "f64":
+        return {"per_element": r["grads"]}
+    r["params_within_1e-5"] = n_close / n_el
+    return r
+
+
+def _params_diff(a: dict, b: dict) -> dict:
+    import numpy as np
+
+    diffs = []
+
+    def walk(x, y):
+        for k in x:
+            if isinstance(x[k], dict):
+                walk(x[k], y[k])
+            else:
+                diffs.append(np.abs(y[k] - x[k]).ravel())
+    walk(a, b)
+    d = np.concatenate(diffs)
+    return {"max_abs": float(d.max()), "within_1e-5": float((d <= 1e-5).mean()),
+            "within_1e-4": float((d <= 1e-4).mean())}
+
+
+def two_process_training(tmp: str, fast5_dir: str, genome_fn: str, species: str) -> dict:
+    """Data-parallel training on the one card: one step as two processes
+    against one, in f64 per element and in f32 at ``_step_parity``'s
+    one-step f32 bars; then ``cli.train`` as two processes against one,
+    identical flags, on 2 reads for 1 epoch, both models, and the
+    one-process run repeated (the card's run-to-run spread in f32)."""
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.train.data import load_training_corpus
+    from nanoreviser_torch.train.loop import load_params_npz
+
+    # 1. one step, dropout on, pad rows all in process 1's half
+    coord = f"127.0.0.1:{_free_port()}"
+    outs = [os.path.join(tmp, f"dp_step{k}.npz") for k in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dp-step", coord, str(k),
+         species, outs[k]], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for k in range(2)]
+    logs = _run_all(procs, 600)
+    for k, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"dp step process {k} returned {p.returncode}:\n{log[-3000:]}")
+    r0, r1 = (dict(np.load(o)) for o in outs)
+    step = {}
+    for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        step[tag] = _dp_step_ratios(r0, r1, _dp_step(species, None, dtype), tag)
+        gated = {k: v for k, v in step[tag].items() if k != "params_within_1e-5"}
+        check(all(v <= 1.0 for v in gated.values())
+              and step[tag].get("params_within_1e-5", 1.0) >= 0.99,
+              f"dp step {tag}: two processes vs one misses a bar: {step[tag]}")
+
+    # 2. the CLI: one process, the same again, then two on the one card
+    flags = ["-d", fast5_dir, "-r", genome_fn, "--model_type", "both", "-c", "2", "-e", "1",
+             "-b", str(TRAIN_BATCH), "-w", str(TRAIN_WINDOW), "--thread", "8", "-S", "dp"]
+
+    def dirs(tag):
+        return ["-o", os.path.join(tmp, tag, "out"), "-M", os.path.join(tmp, tag, "m"),
+                "-t", os.path.join(tmp, tag, "tmp"), "-f", os.path.join(tmp, tag, "failed.txt")]
+
+    secs, stdout = {}, {}
+    for tag in ("dp_one", "dp_again"):
+        t0 = time.time()
+        res = subprocess.run([sys.executable, "-m", "nanoreviser_torch.cli.train", *flags,
+                              *dirs(tag)], cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        secs[tag] = time.time() - t0
+        check(res.returncode == 0, f"one-process CLI ({tag}) returned {res.returncode}:\n"
+              f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        stdout[tag] = res.stdout
+    log = os.path.join(tmp, "dp_writes.log")
+    coord = f"127.0.0.1:{_free_port()}"
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WRITE_LOGGER, *flags, *dirs("dp_two"),
+         "--coordinator_address", coord, "--num_processes", "2", "--process_id", str(k)],
+        cwd=ROOT, env=dict(os.environ, WRITE_LOG=log, PYTHONPATH=ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in range(2)]
+    logs = _run_all(procs, 900)
+    secs["dp_two"] = time.time() - t0
+    stdout["dp_two"] = logs[0]
+    for k, (p, out) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"two-process CLI process {k} returned {p.returncode}:\n"
+              f"{out[-3000:]}")
+    runs = {tag: os.path.join(tmp, tag) for tag in ("dp_one", "dp_again", "dp_two")}
+    for d in runs.values():
+        check(not [f for f in os.listdir(d) if f.startswith("failed")], f"failed reads in {d}")
+    caches = sorted(os.listdir(os.path.join(runs["dp_one"], "m", "dp", "training_input")))
+    check(len(caches) == 2 and caches == sorted(os.listdir(
+        os.path.join(runs["dp_two"], "m", "dp", "training_input"))), f"label caches {caches}")
+    for c in caches:
+        a, b = (np.load(os.path.join(runs[t], "m", "dp", "training_input", c))
+                for t in ("dp_one", "dp_two"))
+        check(sorted(a.files) == sorted(b.files)
+              and all(np.array_equal(a[k], b[k]) for k in a.files), f"label cache {c} differs")
+    writes = [ln.split("\t") for ln in open(log).read().splitlines()]
+    paths = [w[1] for w in writes]
+    check({w[0] for w in writes} == {"0"} and len(paths) == len(set(paths)) == 12,
+          f"artifact writes {writes}")
+    corpus = load_training_corpus(os.path.join(runs["dp_one"], "m", "dp", "training_input"),
+                                  TRAIN_WINDOW)
+    n_steps = -(-(corpus.n_windows - int(corpus.n_windows * 0.01)) // TRAIN_BATCH)
+    ep = {tag: _epoch_seconds(out) for tag, out in stdout.items()}
+    check(all(len(v) == 2 for v in ep.values()), f"epoch lines {ep}")
+    models = {}
+    for i, tag in enumerate(("model1", "model2")):
+        stem = f"dp_win{TRAIN_WINDOW}_1ep_{tag}"
+        two_dir = runs["dp_two"]
+        for path in (os.path.join(two_dir, "m", "dp", f"{stem}.npz"),
+                     os.path.join(two_dir, "m", "dp", f"{stem}.h5"),
+                     os.path.join(two_dir, "m", "dp", "training_model", f"train_{stem}.npz"),
+                     os.path.join(two_dir, "m", "dp", "training_model", f"{tag}_checkpoint.pt"),
+                     os.path.join(two_dir, "out", f"{stem}_hisroty.csv"),
+                     os.path.join(two_dir, "out", f"{stem}_parameters.json")):
+            check(path in paths and os.path.getsize(path) > 0, f"artifact {path}")
+        hist = {t: [float(v) for v in open(os.path.join(d, "out", f"{stem}_hisroty.csv"))
+                    .read().split()[1].split(",")] for t, d in runs.items()}
+        params = {t: load_params_npz(os.path.join(d, "m", "dp", f"{stem}.npz"))
+                  for t, d in runs.items()}
+        a, b = hist["dp_one"][0], hist["dp_two"][0]
+        check(abs(b - a) <= 1e-3 * abs(a), f"{tag} loss: two processes {b}, one {a}")
+        diff = {t: _params_diff(params["dp_one"], params[t]) for t in ("dp_again", "dp_two")}
+        check(diff["dp_two"]["max_abs"] <= 2 * TRAIN_LR * n_steps,
+              f"{tag}: params differ by {diff['dp_two']} after {n_steps} steps")
+        models[tag] = {
+            "loss": {t: h[0] for t, h in hist.items()},
+            "val_loss": {t: h[2] for t, h in hist.items()},
+            "params_vs_one": diff,
+            "steps_per_s": {t: n_steps / v[i] for t, v in ep.items()}}
+    return {"step": step, "windows": int(corpus.n_windows), "steps_per_epoch": n_steps,
+            "cli_seconds": secs, "epoch_seconds": ep, "artifact_writes": len(paths),
+            "models": models}
+
+
 def phase_train(tmp: str) -> dict:
     """The training path on the card: labelling, the training CLI, one step
     held against the CPU, speed, the torch DP against the host library, and
@@ -1202,6 +1566,9 @@ def phase_train(tmp: str) -> dict:
         weights[tag] = os.path.join(species, stem + ".h5")
     epoch_s = [float(ln.rsplit("(", 1)[1].rstrip("s)")) for ln in res.stdout.splitlines()
                if ln.startswith("[p:::] epoch")]
+
+    # data parallel: two processes on the one card against one
+    dp = two_process_training(tmp, fast5_dir, genome_fn, species)
 
     # labels beyond the match class
     mapvals = np.concatenate([np.load(os.path.join(species, "training_input", f))["mapvals"]
@@ -1324,6 +1691,7 @@ def phase_train(tmp: str) -> dict:
                                    "argmax_agreement": agree},
             "revision": {"reads": len(names), "seconds": rev_s, "launches": launches,
                          "failed": 0},
+            "two_processes": dp,
             "nvidia_smi": nvidia_smi_line()}
     emit(info)
     return info
@@ -1334,6 +1702,8 @@ def main(argv: list) -> int:
 
     import nanoreviser_torch  # noqa: F401 — fail before any output without it
 
+    if argv[:1] == ["--dp-step"]:
+        return dp_step_worker(argv[1:])
     only = argv[0] if argv else None
     check(argv in ([], ["--gather-only"], ["--cli-only"], ["--train-only"]),
           f"unknown arguments {argv}")
@@ -1361,6 +1731,7 @@ def main(argv: list) -> int:
         phase_host(fast5_dir, names)
         launches = phase_e2e(tmp, weights, fast5_dir, names)
         torch.cuda.empty_cache()
+        phase_basecaller(tmp, fast5_dir, names)
         phase_train(tmp)
     rows = [grow] + srows
     for r in rows:

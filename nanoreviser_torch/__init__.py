@@ -9,9 +9,12 @@ JAX package so each counterpart is easy to find:
 - ``models``  Keras ``.h5`` import/export, eager reviser, BN folding
 - ``ops``     the window-gather and reviser-stack kernels, their plain
               PyTorch versions, and the nvcc build
-- ``infer``   wire encode/decode, revision merge, the streaming engine
+- ``infer``   wire encode/decode, revision merge, the streaming engine,
+              the external-basecaller hook
 - ``align``   SAM parsing, labels, the banded Smith-Waterman aligner
 - ``train``   the loss, the Adam step, the windowed corpus, the epoch loop
+- ``parallel`` the data-parallel mesh: one process per card
+- ``dist``    process groups, file sharding, batch slices
 - ``native``  the host library (compaction, wire encode, the aligner's DP)
 - ``cli``     the reviser and training command lines
 

@@ -1,9 +1,8 @@
 """Reviser command line on PyTorch: model-path revision on one GPU per process.
 
 Counterpart of ``nanoreviser_tpu/cli/reviser.py``, with its flag surface
-for the model and passthrough modes (reference NanoReviser.py:42-95), the
-multi-process flags, plus ``--device {cuda,cpu}`` (default cuda; cpu runs
-the plain versions).
+(reference NanoReviser.py:42-95), the multi-process flags, plus
+``--device {cuda,cpu}`` (default cuda; cpu runs the plain versions).
 
     python -m nanoreviser_torch.cli.reviser -d <fast5_dir> -o <out> \\
         --revise_mode model -F fastq --device cuda
@@ -20,7 +19,13 @@ the plain versions).
   contiguous shard of the sorted files on ``cuda:(k % device count)``.
   ``--merged_output F`` also writes one multi-record file of all reads in
   sorted order, byte-identical to a one-process run's.
-* ``--revise_mode basecaller`` is not yet ported and raises.
+* ``--revise_mode basecaller`` rebasecalls every read with an external
+  basecaller (``--basecaller_exe``, config ``--basecaller_config``, by
+  default ``<exe dir>/../data/dna_r9.4.1_450bps_hac.cfg``) through
+  ``infer.basecaller.rebasecall_read``, reads decoded on the thread pool
+  that passthrough uses. A read whose rebasecall fails degrades to its own
+  bases (in fastq, the embedded fastq trimmed 7/7) and is recorded in the
+  ``-e`` file; the output is byte-identical to the JAX package's.
 * Every read is processed. A read that cannot be decoded, compacted or
   encoded fails: it goes to the ``-e`` file and gets no output file. A read
   the engine cannot revise degrades to its original bases and is recorded
@@ -121,9 +126,6 @@ def _engine_device(device: str, rank: int, world: int) -> str:
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    if args.revise_mode == "basecaller":
-        raise NotImplementedError("--revise_mode basecaller is not yet ported")
-
     from .. import dist
     from ..io import (
         extract_fastq,
@@ -193,8 +195,8 @@ def main(argv=None) -> int:
                 # yielding them
                 yield from engine.revise_stream(prepped(), errors=failed)
 
-        def passthrough_items():
-            """(fn, ReadData, bases, None), decoded on a thread pool."""
+        def decoded():
+            """(fn, ReadData), decoded on a thread pool."""
             def load(fn: str):
                 path = os.path.join(args.fast5_base_dir, fn)
                 try:
@@ -210,7 +212,33 @@ def main(argv=None) -> int:
                     if exc is not None:
                         report(fn, exc)
                         continue
+                    yield fn, read
+
+        def passthrough_items():
+            """(fn, ReadData, bases, None)."""
+            for fn, read in decoded():
+                yield fn, read, read.bases, None
+
+        def basecaller_items():
+            """(fn, ReadData, seq, qual) from the external basecaller; a
+            read whose rebasecall fails is recorded and yields its own
+            bases with no quality."""
+            from ..infer.basecaller import DEFAULT_CONFIG_NAME, rebasecall_read
+
+            config_fn = args.basecaller_config or os.path.join(
+                os.path.dirname(args.basecaller_exe), "..", "data",
+                DEFAULT_CONFIG_NAME)
+            check_path(args.temp_dir)
+            for fn, read in decoded():
+                try:
+                    seq, qual = rebasecall_read(
+                        os.path.join(args.fast5_base_dir, fn), args.temp_dir,
+                        args.basecaller_exe, config_fn)
+                except Exception as exc:  # noqa: BLE001 — a read degrades alone
+                    failed.append((fn, str(exc)))
                     yield fn, read, read.bases, None
+                    continue
+                yield fn, read, seq, qual
 
         degraded_names: set[str] = set()
         n_failed_seen = 0
@@ -223,7 +251,8 @@ def main(argv=None) -> int:
             return fn in degraded_names
 
         merged_records: list = []
-        items = model_items() if mode == "model" else passthrough_items()
+        items = {"model": model_items, "basecaller": basecaller_items,
+                 "passthrough": passthrough_items}[mode]()
         try:
             for fn, _, seq, qual in items:
                 try:
@@ -245,7 +274,7 @@ def main(argv=None) -> int:
                         with open(out_fn) as fp:
                             header, body = fp.read().split("\n", 1)
                         merged_records.append((header, body))
-                    if mode == "model" and was_degraded(fn):
+                    if mode in ("model", "basecaller") and was_degraded(fn):
                         if args.test_mode and logger:
                             logger.error(
                                 "[!!! Error] read degraded to passthrough: %s", fn)

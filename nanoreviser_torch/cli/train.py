@@ -1,4 +1,5 @@
-"""Training command line on PyTorch: label reads, then train on one GPU.
+"""Training command line on PyTorch: label reads, then train on one GPU or
+on N processes, one GPU each.
 
 Counterpart of ``nanoreviser_tpu/cli/train.py``, flag-compatible with the
 reference ``NanoReviser_train.py`` (:30-114): -d, -o, -r/--reference,
@@ -24,8 +25,16 @@ Steps:
 5. write the ``.npz`` weights, the Keras ``.h5``, the history CSV and the
    parameters JSON under the reference's names.
 
-``--coordinator_address`` / ``--num_processes`` > 1 (data-parallel
-training) are not ported yet and raise.
+Multi-process: ``--coordinator_address host:port --num_processes N
+--process_id k`` (or NANOREV_COORDINATOR / NANOREV_NUM_PROCESSES /
+NANOREV_PROCESS_ID) runs N cooperating processes, process k on
+``cuda:(k % device count)`` (or the CPU with ``--device cpu``). Each labels
+a contiguous shard of the sorted reads into the shared cache (failed reads
+go to ``-f`` suffixed ``.rank<k>``), and after a barrier all of them build
+the same corpus and train data-parallel over the ``dp`` mesh
+(``parallel.make_mesh``) on global batches of ``-b``, rounded up to a
+multiple of N. Process 0 alone writes the checkpoint and the artifacts;
+no process cleans up before every process is done.
 """
 
 from __future__ import annotations
@@ -103,9 +112,11 @@ def _test_mode_pseudo_genome(args) -> str:
     return genome_fn
 
 
-def _preprocess(args) -> int:
-    """Label reads -> per-read .npz cache, on ``--thread`` threads. Returns
-    the number of reads labelled; failures go to ``-f``."""
+def _preprocess(args, rank: int = 0, world: int = 1) -> int:
+    """Label reads -> per-read .npz cache, on ``--thread`` threads; over N
+    processes, this process's shard of the reads. Returns the number of
+    reads labelled; failures go to ``-f`` (suffixed ``.rank<k>`` over N
+    processes, so that shards never overwrite each other's)."""
     import concurrent.futures as cf
 
     from ..io import list_fast5_files, parse_fasta
@@ -123,6 +134,10 @@ def _preprocess(args) -> int:
     fast5_fns = list_fast5_files(args.fast5_base_dir)
     if args.read_counts and args.read_counts < len(fast5_fns):
         fast5_fns = fast5_fns[: args.read_counts]
+    if world > 1:
+        from ..dist import shard_files
+
+        fast5_fns = shard_files(fast5_fns, rank, world)
     check_path(args.train_input_dir)
 
     def one(fn: str):
@@ -156,7 +171,10 @@ def _preprocess(args) -> int:
                 if not args.test_mode:
                     print(f"！！！[Error] {fn.split('.')[0]}: {exc}")
     if failed and args.failed_reads_filename:
-        with open(args.failed_reads_filename, "w") as fp:
+        path = args.failed_reads_filename
+        if world > 1:
+            path += f".rank{rank}"
+        with open(path, "w") as fp:
             for fn, err in sorted(failed):
                 fp.write(f"{fn}\t{err}\n")
     return n_ok
@@ -164,19 +182,34 @@ def _preprocess(args) -> int:
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    if (args.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "multi-process training (--coordinator_address/--num_processes) "
-            "is not ported yet (ROADMAP A.5)")
     from ..train.loop import resolve_device
 
-    device = resolve_device(args.device)   # no card: raise before any work
+    resolve_device(args.device)   # no card: raise before any work
+    from .. import dist
+
+    is_dist = dist.initialize(args.coordinator_address, args.num_processes,
+                              args.process_id)
+    rc = 1
+    try:
+        rc = _run(args, *(dist.process_info() if is_dist else (0, 1)))
+        return rc
+    finally:
+        # a process that failed leaves at once: its peers' collectives
+        # then fail instead of waiting for it
+        if is_dist:
+            dist.shutdown(wait=rc == 0)
+
+
+def _run(args, rank: int, world: int) -> int:
+    from ..dist import barrier
     from ..models import load_keras_weights, save_keras_weights
+    from ..parallel import make_mesh
     from ..train.data import load_training_corpus
     from ..train.loop import save_params_npz, train_model
     from ..utils import check_path, logger_config, model_fn_generate
     from ..utils.files import summary_generate, write_summary_file
 
+    mesh = make_mesh(args.device)   # process k: cuda:(k % device count)
     logger = None
     if args.test_mode:
         logger = logger_config("./unitest/unitest_log.txt", "unitest")
@@ -189,13 +222,20 @@ def main(argv=None) -> int:
         check_path(args.temp_dir)
         check_path(args.output_dir)
         check_path(args.train_input_dir)
-        if _preprocess(args) == 0:
+        n_ok = _preprocess(args, rank, world)
+        # every process labels its shard into the shared cache; all shards
+        # must be there before any process builds the (global) corpus
+        barrier()
+        if world == 1 and n_ok == 0:
             raise RuntimeError("no reads could be labeled")
         check_path(args.train_model_dir)
 
         corpus = load_training_corpus(args.train_input_dir, args.window_size)
         if corpus.y.size == 0:
             raise RuntimeError("no reads could be labeled")
+        # global batches divide evenly across the processes
+        if args.batch_size % world:
+            args.batch_size += world - args.batch_size % world
 
         jobs = []
         if args.model_type in ("both", "model1"):
@@ -224,29 +264,33 @@ def main(argv=None) -> int:
                     args.train_model_dir, f"{tag}_checkpoint.pt"
                 ),
                 resume=args.resume,
-                verbose=not args.test_mode,
-                device=device,
+                verbose=not args.test_mode and rank == 0,
+                mesh=mesh,
             )
-            save_params_npz(params, pre_fn.replace(".h5", ".npz"))
-            save_keras_weights(params, pre_fn, window=args.window_size,
-                               n_classes=n_classes)
-            save_params_npz(params, train_fn.replace(".h5", ".npz"))
-            write_summary_file(history, summary_generate(args, t0), hist_fn,
-                               summary_fn)
+            if rank == 0:
+                # the params are equal on every process; one writes them
+                save_params_npz(params, pre_fn.replace(".h5", ".npz"))
+                save_keras_weights(params, pre_fn, window=args.window_size,
+                                   n_classes=n_classes)
+                save_params_npz(params, train_fn.replace(".h5", ".npz"))
+                write_summary_file(history, summary_generate(args, t0), hist_fn,
+                                   summary_fn)
             if not args.test_mode:
                 print(f"[p:::] {tag} completed......")
 
+        barrier()   # no process removes what another may still read
         if args.test_mode and logger:
             logger.info("Congratulations, NanoReviser_train is installed properly")
-            for path in (args.output_dir, args.model_dir):
-                if os.path.exists(path):
-                    shutil.rmtree(path)
+            if rank == 0:
+                for path in (args.output_dir, args.model_dir):
+                    if os.path.exists(path):
+                        shutil.rmtree(path)
         else:
             print(
                 "[s:::] The training time of NanoReviser_train is :%.2f seconds"
                 % (time.time() - start_time)
             )
-        if os.path.exists(args.temp_dir):
+        if rank == 0 and os.path.exists(args.temp_dir):
             shutil.rmtree(args.temp_dir)
         return 0
     except Exception as exc:  # noqa: BLE001 — the reference's exit contract

@@ -1,15 +1,18 @@
-"""Multi-process inference: torch.distributed + deterministic file sharding.
+"""Multi-process runs: torch.distributed, file sharding, batch slices.
 
-The inference half of ``nanoreviser_tpu/dist/__init__.py``:
+Counterpart of ``nanoreviser_tpu/dist/__init__.py``:
 
 * ``initialize`` joins N processes (one per GPU, on one host or several)
-  into a gloo process group over TCP; the group carries only barriers, as
-  every process revises its own reads on its own card;
+  into a gloo process group over TCP. In inference it carries only
+  barriers, as every process revises its own reads on its own card; in
+  training ``parallel.make_mesh`` builds the reducing group on it;
 * ``shard_files`` gives every process a deterministic, disjoint,
   contiguous slice of the sorted file list, so per-read outputs never
   collide and the optional single-file merge (``write_merged_part`` +
   ``merge_parts``) is in shard order and byte-identical to one process's,
-  whatever order the processes finish in.
+  whatever order the processes finish in;
+* ``local_batch_slice`` and ``distribute_batch``: every training process
+  builds the same global batch and uploads its own contiguous slice.
 
 torch is imported inside the functions that need it.
 """
@@ -135,3 +138,24 @@ def merge_parts(
         os.remove(part)
         os.remove(part + ".done")
     return merged_fn
+
+
+# ------------------------------------------------------- batch distribution
+
+
+def distribute_batch(mesh, batch: dict) -> dict:
+    """This process's numpy slice of the global batch -> tensors on the
+    mesh's device (from pinned memory, without waiting for the copy)."""
+    from ..train.loop import _uploader
+
+    return _uploader(mesh.device)(batch)
+
+
+def local_batch_slice(batch: dict, process_index: int, process_count: int):
+    """The slice of a globally-constructed batch owned by this process."""
+    out = {}
+    for k, v in batch.items():
+        n = len(v)
+        per = n // process_count
+        out[k] = v[process_index * per : (process_index + 1) * per]
+    return out

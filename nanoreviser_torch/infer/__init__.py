@@ -12,6 +12,7 @@ _SOURCES = {
     "labels_to_bases": "merge",
     "merge_revision": "merge",
     "merge_revision_with_quality": "merge",
+    "revision_stats": "merge",
     "StreamingReviser": "streaming",
     "PrepPool": "hostpipe",
 }

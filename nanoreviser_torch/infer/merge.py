@@ -155,6 +155,47 @@ def merge_revision_with_quality(
     )
 
 
+def revision_stats(
+    bases: str,
+    y1_labels: np.ndarray,
+    y2_labels: np.ndarray,
+    center_offset: int = 0,
+) -> dict:
+    """Edit-op counts the merge would apply (model-path accuracy evidence).
+
+    Returns counts over the covered positions:
+      substitutions  — y1 == y2 in ACGT and != the original base
+      confirmations  — y1 == y2 in ACGT and == the original base
+      deletions_recovered — y1 == 'D', y2 in ACGT (a base is inserted)
+      insertions_dropped  — y1 == y2 == '-' (the original base is removed)
+      center_agreement    — fraction of covered positions where model1's
+                            call equals the original base (discriminativeness
+                            sanity: most bases in a real read are correct)
+    """
+    base_codes = np.frombuffer(bases.encode("ascii"), dtype=np.uint8)
+    base_codes = base_codes[center_offset:]
+    y = labels_to_bases(y1_labels, model2=False)
+    z = labels_to_bases(y2_labels, model2=True)
+    n = min(len(base_codes), len(y), len(z))
+    b, y, z = base_codes[:n], y[:n], z[:n]
+
+    both = (y == z) & _ACGT[y]
+    subs = int((both & (y != b)).sum())
+    confirms = int((both & (y == b)).sum())
+    dels = int(((y == _D) & _ACGT[z]).sum())
+    ins = int(((y == _DASH) & (z == _DASH)).sum())
+    agree = float((y == b).mean()) if n else 0.0
+    return {
+        "covered": n,
+        "substitutions": subs,
+        "confirmations": confirms,
+        "deletions_recovered": dels,
+        "insertions_dropped": ins,
+        "center_agreement": agree,
+        "edits": subs + dels + ins,
+    }
+
+
 def calibrate_center_offset(
     bases: str, y1_labels: np.ndarray, window: int = 13,
     min_agreement: float = 0.5, min_n: int = 64,

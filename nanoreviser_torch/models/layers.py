@@ -66,14 +66,32 @@ def batch_norm(params: dict, x: torch.Tensor, eps: float = BN_EPS) -> torch.Tens
     return (x - params["mean"]) * inv * params["gamma"] + params["beta"]
 
 
-def batch_norm_train(params: dict, x: torch.Tensor,
-                     eps: float = BN_EPS) -> tuple[torch.Tensor, dict]:
+def batch_norm_train(params: dict, x: torch.Tensor, eps: float = BN_EPS,
+                     mesh=None) -> tuple[torch.Tensor, dict]:
     """Training-mode BN: normalize by the batch moments over every axis but
     the last; returns (y, {"mean", "var"}) for the moving-statistics update.
-    The variance is the biased one (``jnp.var``), not torch's default."""
+    The variance is the biased one (``jnp.var``), not torch's default.
+
+    With a distributed ``mesh`` (``parallel.Mesh``) ``x`` is this process's
+    slice of the global batch, every slice of the same size, and the
+    moments are the global batch's, as the JAX package takes them under
+    ``jit`` over dp-sharded arrays. They take two passes, as
+    ``var(correction=0)`` does (the global sum gives the mean, then the
+    global sum of squared deviations the variance: one pass of sums of
+    squares cancels in f32), each a differentiable all-reduce
+    (``parallel.all_reduce_sum``), so the backward is global too and every
+    process calls it."""
     axes = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=axes)
-    var = x.var(dim=axes, correction=0)
+    if mesh is None or not mesh.distributed:
+        mean = x.mean(dim=axes)
+        var = x.var(dim=axes, correction=0)
+    else:
+        from ..parallel import all_reduce_sum
+
+        n = (x.numel() // x.shape[-1]) * mesh.world
+        mean = all_reduce_sum(x.sum(dim=axes), mesh) / n
+        d = x - mean
+        var = all_reduce_sum((d * d).sum(dim=axes), mesh) / n
     y = (x - mean) * torch.rsqrt(var + eps) * params["gamma"] + params["beta"]
     return y, {"mean": mean, "var": var}
 

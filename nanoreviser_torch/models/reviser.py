@@ -49,35 +49,53 @@ def params_from_numpy(params: dict, device="cpu", dtype=torch.float32) -> dict:
     return torch.tensor(np.asarray(params), dtype=dtype, device=device)
 
 
-def _bn(params: dict, name: str, h: torch.Tensor, stats: dict | None) -> torch.Tensor:
+def _bn(params: dict, name: str, h: torch.Tensor, stats: dict | None,
+        mesh=None) -> torch.Tensor:
     """BN ``name`` on its moving statistics, or, given ``stats`` (training),
-    on the batch moments, which it records in ``stats[name]``."""
+    on the batch moments (the global batch's over a distributed ``mesh``),
+    which it records in ``stats[name]``."""
     if stats is None:
         return batch_norm(params[name], h)
-    y, stats[name] = batch_norm_train(params[name], h)
+    y, stats[name] = batch_norm_train(params[name], h, mesh=mesh)
     return y
+
+
+def _dropout_mask(shape, keep: float, generator: torch.Generator, device,
+                  mesh) -> torch.Tensor:
+    """The keep mask of this process's rows. Over a distributed ``mesh`` it
+    is drawn at the global batch's shape and this process's contiguous
+    block of rows is kept, so N processes on the same generator state use
+    exactly the masks of one process on the global batch."""
+    if mesh is None or not mesh.distributed:
+        return torch.rand(shape, generator=generator, device=device) < keep
+    rows = shape[0]
+    u = torch.rand((rows * mesh.world, *shape[1:]), generator=generator,
+                   device=device)
+    return u[mesh.rank * rows : (mesh.rank + 1) * rows] < keep
 
 
 def signal_branch(params: dict, signal: torch.Tensor, cfg: ReviserConfig,
                   stats: dict | None = None,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  mesh=None) -> torch.Tensor:
     """[B,T,S] or [B,T,S,1] -> [B,T,64] through the conv residual branch.
 
     With ``stats`` (a dict) it runs in training mode: its BNs normalize by
     the batch moments, which go into ``stats``, and dropout follows the
-    residual add (mask drawn from ``generator``)."""
+    residual add (mask drawn from ``generator``). ``mesh``: see
+    ``reviser_apply``."""
     if signal.dim() == 3:
         signal = signal[..., None]
     b, t, s, c = signal.shape
     x = signal.reshape(b * t, s, c)
-    h = _bn(params, "bn_c1", conv1d_relu(params["conv1"], x), stats)
-    h = _bn(params, "bn_c2", conv1d_relu(params["conv2"], h), stats)
+    h = _bn(params, "bn_c1", conv1d_relu(params["conv1"], x), stats, mesh)
+    h = _bn(params, "bn_c2", conv1d_relu(params["conv2"], h), stats, mesh)
     h = h + x  # residual: broadcasts the 1-channel input onto the filters
     if stats is not None and cfg.dropout_rate > 0:
         if generator is None:
             raise ValueError("training with dropout needs a torch.Generator")
         keep = 1.0 - cfg.dropout_rate
-        mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+        mask = _dropout_mask(h.shape, keep, generator, h.device, mesh)
         h = torch.where(mask, h / keep, 0.0)
     h = h.reshape(b, t, s * cfg.conv_filters)
     return dense(params["sig_dense"], h)
@@ -85,22 +103,26 @@ def signal_branch(params: dict, signal: torch.Tensor, cfg: ReviserConfig,
 
 def reviser_apply(params: dict, signal: torch.Tensor, feats: torch.Tensor,
                   cfg: ReviserConfig | None = None, *, train: bool = False,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None, mesh=None):
     """Forward pass. signal: [B, T, S(, 1)]; feats: [B, T, 6].
 
     Returns (probs [B, n_classes], feature [B, 16]); with ``train=True``
     also the BN batch statistics, {name: {"mean", "var"}} for bn_c1,
     bn_c2, bn_r1, bn_r2 and bn_t1, and dropout draws its mask from
-    ``generator``, a ``torch.Generator`` on the tensors' device."""
+    ``generator``, a ``torch.Generator`` on the tensors' device.
+
+    ``mesh`` (training over a distributed ``parallel.Mesh``): the inputs are
+    this process's slice of the global batch, the BN moments are the global
+    batch's and the dropout mask is this slice's rows of the global one."""
     if cfg is None:
         cfg = ReviserConfig(window=feats.shape[1],
                             n_classes=params["final_out"]["b"].shape[0])
     stats = {} if train else None
-    sig_out = signal_branch(params, signal, cfg, stats, generator)
-    r = _bn(params, "bn_r1", bilstm(params["read_rnn1"], feats), stats)
-    r = _bn(params, "bn_r2", bilstm(params["read_rnn2"], r), stats)
+    sig_out = signal_branch(params, signal, cfg, stats, generator, mesh)
+    r = _bn(params, "bn_r1", bilstm(params["read_rnn1"], feats), stats, mesh)
+    r = _bn(params, "bn_r2", bilstm(params["read_rnn2"], r), stats, mesh)
     h = torch.cat([r, sig_out], dim=-1)
-    h = _bn(params, "bn_t1", bilstm(params["total_rnn1"], h), stats)
+    h = _bn(params, "bn_t1", bilstm(params["total_rnn1"], h), stats, mesh)
     h = bilstm(params["total_rnn2"], h)
     h = dense(params["dense1"], h, torch.relu)
     h = dense(params["dense2"], h, torch.relu)

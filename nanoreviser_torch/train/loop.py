@@ -1,4 +1,4 @@
-"""Training loop: Keras-fit semantics on one device.
+"""Training loop: Keras-fit semantics on one device or N processes.
 
 Counterpart of ``nanoreviser_tpu/train/loop.py:31-297``: per-epoch
 checkpoints with resume, the eval step (inference forward with the moving
@@ -14,6 +14,14 @@ losses and accuracies stay on the device until the epoch ends. So the
 card runs ahead of the host by as many steps as the allocator allows, and
 ``steps_per_dispatch`` is accepted for signature parity and changes
 nothing.
+
+Data parallel (``mesh``, a ``parallel.Mesh`` of N processes): as in the JAX
+package (``nanoreviser_tpu/train/loop.py:135-145``), every process builds the
+same global batches from the same seed and trains on its own slice of each
+(``dist.local_batch_slice``); the step reduces across processes so that the
+result is one process's on the global batches (``train/step.py``). The
+validation sums are reduced once per epoch, so ``history`` is global; only
+process 0 writes the checkpoint, and every process resumes from it.
 """
 
 from __future__ import annotations
@@ -136,14 +144,25 @@ def train_model(
     streaming base arrays [N, *] (windows gathered per batch; see
     BatchIterator); y_train is [W, 1] window-centre targets either way.
     ``device``: None means the card (raises without one); "cpu" trains on
-    the CPU. ``mesh`` (data-parallel training) is not ported yet and raises.
-    ``steps_per_dispatch`` has no effect (module docstring).
+    the CPU. ``mesh``: a ``parallel.Mesh``; training runs on its device,
+    and over N processes ``batch_size`` is the global batch and must be a
+    multiple of N (the CLI rounds it up). ``steps_per_dispatch`` has no
+    effect (module docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet (ROADMAP A.5)")
+    from ..parallel import Mesh
+
     del steps_per_dispatch
-    dev = resolve_device(device)
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh, not {type(mesh).__name__}")
+    if (mesh is not None and device is not None
+            and torch.device(device).type != mesh.device.type):
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    dev = resolve_device(device) if mesh is None else mesh.device
+    dp = mesh is not None and mesh.distributed
+    if dp and batch_size % mesh.world:
+        raise ValueError(f"batch_size {batch_size} is not a multiple of the "
+                         f"{mesh.world} processes")
+    rank = mesh.rank if dp else 0
     cfg = ReviserConfig(window=window, n_classes=n_classes)
     params = init_params
     if params is None:
@@ -163,19 +182,35 @@ def train_model(
         if verbose:
             print(f"[p:::] resumed from {checkpoint_path} at epoch {start_epoch}")
 
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, mesh=mesh)
     cw = torch.as_tensor(default_class_weights(n_classes), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    upload = _uploader(dev)
+    if dp:
+        from ..dist import distribute_batch, local_batch_slice
+
+        def upload(batch: dict):
+            """(this process's slice on the device, the global batch's
+            loss denominator)."""
+            denom = max(float(np.sum(batch["weight"], dtype=np.float64)), 1.0)
+            local = local_batch_slice(batch, mesh.rank, mesh.world)
+            return distribute_batch(mesh, local), denom
+    else:
+        up = _uploader(dev)
+
+        def upload(batch: dict):
+            return up(batch), None
 
     @torch.no_grad()
-    def eval_step(batch):
+    def eval_step(batch, denom=None):
+        """(loss, accuracy) of a batch; given the global batch's
+        ``denom``, this slice's shares of them."""
         probs, _ = reviser_apply(params, batch["signal"], batch["feats"], cfg)
         y, w = batch["y"], batch["weight"]
         yi = torch.remainder(y, n_classes)      # -1 -> the last class (loss.py)
         pc = torch.clamp(probs, 1e-7, 1 - 1e-7)
         ce = -torch.log(torch.gather(pc, 1, yi[:, None]))[:, 0]
-        denom = torch.clamp(torch.sum(w), min=1.0)
+        if denom is None:
+            denom = torch.clamp(torch.sum(w), min=1.0)
         loss = torch.sum(ce * cw[yi] * w) / denom
         acc = torch.sum((torch.argmax(probs, -1) == y) * w) / denom
         return loss, acc
@@ -188,17 +223,23 @@ def train_model(
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         losses, accs = [], []
-        for batch in _prefetched(it.epoch(), upload):
-            metrics, _ = step(params, optimizer, batch, gen)
+        for batch, denom in _prefetched(it.epoch(), upload):
+            metrics, _ = step(params, optimizer, batch, gen, denominator=denom)
             losses.append(metrics["loss"])
             accs.append(metrics["accuracy"])
         ep_loss = float(torch.stack(losses).mean())
         ep_acc = float(torch.stack(accs).mean())
         vl, va = [], []
-        for batch in _prefetched(it.validation(), upload):
-            loss, acc = eval_step(batch)
+        for batch, denom in _prefetched(it.validation(), upload):
+            loss, acc = eval_step(batch, denom)
             vl.append(loss)
             va.append(acc)
+        if dp and vl:
+            import torch.distributed as dist
+
+            shares = torch.stack([torch.stack(vl), torch.stack(va)])
+            dist.all_reduce(shares, group=mesh.group)
+            vl, va = list(shares[0]), list(shares[1])
         val_loss = float(torch.stack(vl).mean()) if vl else float("nan")
         val_acc = float(torch.stack(va).mean()) if va else float("nan")
         history["loss"].append(ep_loss)
@@ -211,7 +252,7 @@ def train_model(
                 f"acc={ep_acc:.4f} val_loss={val_loss:.4f} "
                 f"({time.time() - t0:.1f}s)"
             )
-        if checkpoint_path:
+        if checkpoint_path and rank == 0:
             save_checkpoint(checkpoint_path, params, optimizer, epoch + 1)
 
     return params_to_numpy(params), history

@@ -32,9 +32,15 @@ def reviser_loss(
     center_loss_weight: float = 0.4,
     center_target_weight: float | torch.Tensor | None = None,
     sample_weight: torch.Tensor | None = None,   # [B]; pad rows weigh 0
+    denominator: float | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """(total loss, {"ce_loss", "center_loss", "accuracy"}), all scalars on
-    the inputs' device."""
+    the inputs' device.
+
+    ``denominator`` replaces ``max(sum(sample_weight), 1)``: a process that
+    holds a slice of a global batch passes the global batch's (known on the
+    host), so that its terms are its share of the global loss and the
+    processes' shares sum to it."""
     y = y.long()
     yi = torch.remainder(y, probs.shape[1])     # -1 -> the last class
     p = torch.clamp(probs, KERAS_EPS, 1.0 - KERAS_EPS)
@@ -50,7 +56,8 @@ def reviser_loss(
         center_loss = torch.mean(l2 * center_target_weight)
         acc = torch.mean(hit)
     else:
-        denom = torch.clamp(torch.sum(sample_weight), min=1.0)
+        denom = (torch.clamp(torch.sum(sample_weight), min=1.0)
+                 if denominator is None else denominator)
         ce_loss = torch.sum(ce * w * sample_weight) / denom
         center_loss = torch.sum(l2 * center_target_weight * sample_weight) / denom
         acc = torch.sum(hit * sample_weight) / denom

@@ -14,6 +14,17 @@ custom gradient), so the port has no hand-written kernel here either.
   the optimizer step they move with Keras' momentum 0.99.
 * Pad rows (weight 0) take part in the BN batch moments, as in JAX, which
   normalizes over the whole padded batch; only the loss masks them.
+
+Data parallel (``mesh``, a distributed ``parallel.Mesh``). The JAX package
+jits the global step over dp-sharded arrays
+(``nanoreviser_tpu/train/step.py:97-115``), so every reduction is the global
+batch's. Here each process holds a slice of the global batch, and the step
+keeps those semantics where plain ``DistributedDataParallel`` would not:
+the BN moments are reduced across processes (``models/layers.py``), the
+dropout mask is the global one's rows (``models/reviser.py``), the loss
+divides by the global batch's weight (``denominator``, known on the host),
+and the gradients are summed across processes, not averaged, as one flat
+bucket with the step's metrics appended.
 """
 
 from __future__ import annotations
@@ -96,14 +107,31 @@ def update_moving_stats(params: dict, stats: dict,
                 s.copy_(s * momentum + stats[key][k] * (1 - momentum))
 
 
+def _sum_across(mesh, optimizer, metrics: torch.Tensor) -> torch.Tensor:
+    """Sum every trained leaf's gradient and the ``metrics`` vector across
+    the mesh's processes in one all-reduce; returns the summed metrics."""
+    import torch.distributed as dist
+
+    trained = [p for g in optimizer.param_groups for p in g["params"]]
+    flat = torch.cat([p.grad.reshape(-1) for p in trained]
+                     + [metrics.to(trained[0].grad.dtype)])
+    dist.all_reduce(flat, group=mesh.group)
+    off = 0
+    for p in trained:
+        p.grad = flat[off : off + p.numel()].view_as(p)
+        off += p.numel()
+    return flat[off:]
+
+
 def make_train_step(
     cfg: ReviserConfig,
     class_weights: np.ndarray | None = None,
     center_loss_weight: float = 0.4,
     bn_momentum: float = KERAS_BN_MOMENTUM,
+    mesh=None,
 ):
-    """Returns ``train_step(params, optimizer, batch, generator=None) ->
-    (metrics, stats)``.
+    """Returns ``train_step(params, optimizer, batch, generator=None,
+    denominator=None) -> (metrics, stats)``.
 
     ``params`` is a tensor tree from ``params_to_torch`` and ``optimizer``
     a ``keras_adam`` over it; both are updated in place, and each trained
@@ -114,28 +142,47 @@ def make_train_step(
     "ce_loss", "center_loss", "accuracy") and ``stats`` (the BN batch
     moments) are detached tensors on the device: nothing here waits for
     the card.
+
+    Over a distributed ``mesh`` ``batch`` is this process's slice of the
+    global batch and ``denominator`` is required: ``max(sum(weight), 1)``
+    of the global batch. The gradients, metrics and moments are then the
+    global batch's, equal on every process.
     """
+    dp = mesh is not None and mesh.distributed
     if class_weights is None:
         class_weights = default_class_weights(cfg.n_classes)
     cw_host = torch.as_tensor(np.asarray(class_weights), dtype=torch.float32)
     cw_on: dict = {}
 
-    def train_step(params, optimizer, batch, generator=None):
+    def train_step(params, optimizer, batch, generator=None, denominator=None):
         dev = batch["signal"].device
         if dev not in cw_on:
             cw_on[dev] = cw_host.to(dev)
+        if dp and denominator is None:
+            raise ValueError("a distributed step needs the global batch's "
+                             "denominator, max(sum(weight), 1)")
         optimizer.zero_grad(set_to_none=True)
         probs, feature, stats = reviser_apply(
             params, batch["signal"], batch["feats"], cfg, train=True,
-            generator=generator)
+            generator=generator, mesh=mesh)
+        weight = batch.get("weight")
+        if dp and weight is None:
+            weight = torch.ones(probs.shape[0], device=dev)
         loss, metrics = reviser_loss(
             probs, feature, params["centers"], batch["y"], cw_on[dev],
-            center_loss_weight, sample_weight=batch.get("weight"))
+            center_loss_weight, sample_weight=weight,
+            denominator=denominator if dp else None)
         loss.backward()
+        metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+        if dp:
+            names = sorted(metrics)
+            summed = _sum_across(mesh, optimizer,
+                                 torch.stack([metrics[k] for k in names]))
+            metrics = {k: summed[i].to(metrics[k].dtype)
+                       for i, k in enumerate(names)}
         optimizer.step()
         stats = {k: {m: v.detach() for m, v in s.items()} for k, s in stats.items()}
         update_moving_stats(params, stats, bn_momentum)
-        metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
         return metrics, stats
 
     return train_step

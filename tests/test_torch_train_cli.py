@@ -10,8 +10,12 @@
   read the ``.h5``, which holds the ``.npz`` weights, and the history CSV
   and parameters JSON are byte-equal to the JAX writer's output for the
   same history and summary.
-* Without ``--device cpu`` the CLI raises on a host with no card, and
-  multi-process training raises.
+* Without ``--device cpu`` the CLI raises on a host with no card, before
+  a multi-process run joins its group.
+* Two CLI processes (``--num_processes 2``, gloo on localhost) label
+  disjoint shards into a cache equal to one process's, write each
+  artifact once (process 0), suffix their failed-read files ``.rank<k>``,
+  and train weights within the loop test's bar of one process's.
 """
 
 import json
@@ -247,7 +251,132 @@ def test_cli_needs_a_card_unless_cpu(reads, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["-d", str(fast5), "-r", str(genome)])
-    with pytest.raises(NotImplementedError, match="A.5"):
-        main(["-d", str(fast5), "-r", str(genome), "--device", "cpu",
-              "--num_processes", "2", "--coordinator_address", "localhost:1"])
+    # a multi-process run checks for the card before it joins the group
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-d", str(fast5), "-r", str(genome), "--num_processes", "2",
+              "--coordinator_address", "localhost:1", "--process_id", "0"])
     assert os.listdir(tmp_path) == []        # nothing ran
+
+
+# runs the training CLI with its artifact writers logging (process, path)
+WRITE_LOGGER = """
+import os, sys
+import nanoreviser_torch.models as models
+import nanoreviser_torch.train.loop as loop
+import nanoreviser_torch.utils.files as files
+rank = sys.argv[sys.argv.index("--process_id") + 1]
+
+def logged(fn, *positions):
+    def write(*args, **kwargs):
+        with open(os.environ["WRITE_LOG"], "a") as fp:
+            for i in positions:
+                fp.write(rank + "\\t" + str(args[i]) + "\\n")
+        return fn(*args, **kwargs)
+    return write
+
+models.save_keras_weights = logged(models.save_keras_weights, 1)
+loop.save_params_npz = logged(loop.save_params_npz, 1)
+loop.save_checkpoint = logged(loop.save_checkpoint, 0)
+files.write_summary_file = logged(files.write_summary_file, 2, 3)
+from nanoreviser_torch.cli.train import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_two_process_cli_equals_one_process(reads, tmp_path):
+    import subprocess
+
+    from nanoreviser_torch.cli.train import main
+    from nanoreviser_torch.train.loop import load_params_npz
+
+    _, fast5, names, genome = reads
+    src = tmp_path / "fast5"          # the reads and two broken files, one per shard
+    src.mkdir()
+    for n in names:
+        os.symlink(fast5 / n, src / n)
+    for bad in ("a_bad.fast5", "z_bad.fast5"):
+        (src / bad).write_bytes(b"not an hdf5 file")
+    flags = ["-d", str(src), "-r", str(genome), "-S", "syn", "-e", "1", "-w", "5",
+             "-b", "256", "--thread", "1", "--device", "cpu"]
+
+    def run_flags(tag):
+        return flags + ["-o", str(tmp_path / tag / "out"), "-M", str(tmp_path / tag / "m"),
+                        "-t", str(tmp_path / tag / "tmp"),
+                        "-f", str(tmp_path / tag / "failed.txt")]
+
+    coord = f"127.0.0.1:{_free_port()}"
+    log = tmp_path / "writes.log"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WRITE_LOG=str(log), OMP_NUM_THREADS="2", PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WRITE_LOGGER, *run_flags("two"),
+         "--coordinator_address", coord, "--num_processes", "2", "--process_id", str(k)],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(2)]
+    try:
+        assert main(run_flags("one")) == 0
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+
+    one, two = tmp_path / "one", tmp_path / "two"
+    # failed reads: one file per process, each naming its shard's broken read
+    assert (one / "failed.txt").read_text().split("\n")[0].startswith("a_bad.fast5\t")
+    assert not (two / "failed.txt").exists()
+    for k, bad in enumerate(("a_bad.fast5", "z_bad.fast5")):
+        lines = (two / f"failed.txt.rank{k}").read_text().splitlines()
+        assert [ln.split("\t")[0] for ln in lines] == [bad]
+    # the label cache: the union of the shards, equal to one process's
+    caches = sorted(os.listdir(one / "m" / "syn" / "training_input"))
+    assert caches == [n.split(".")[0] + ".npz" for n in names]
+    assert sorted(os.listdir(two / "m" / "syn" / "training_input")) == caches
+    for c in caches:
+        _npz_equal(one / "m" / "syn" / "training_input" / c,
+                   two / "m" / "syn" / "training_input" / c)
+    # every artifact written once, by process 0
+    writes = [ln.split("\t") for ln in log.read_text().splitlines()]
+    paths = [w[1] for w in writes]
+    assert {w[0] for w in writes} == {"0"} and len(paths) == len(set(paths)) == 12
+    for tag, n_classes in (("model1", 6), ("model2", 5)):
+        stem = f"syn_win5_1ep_{tag}"
+        want = [two / "m" / "syn" / f"{stem}.npz", two / "m" / "syn" / f"{stem}.h5",
+                two / "m" / "syn" / "training_model" / f"train_{stem}.npz",
+                two / "m" / "syn" / "training_model" / f"{tag}_checkpoint.pt",
+                two / "out" / f"{stem}_hisroty.csv", two / "out" / f"{stem}_parameters.json"]
+        for path in want:
+            assert str(path) in paths and path.exists(), path
+        # trained weights and history within the loop test's bars (its
+        # params bar: a few Adam steps' worth; f32 rounding alone moves
+        # near-zero gradients' updates by up to lr a step, while in f64 two
+        # processes equal one to 1e-12, tests/test_torch_dp.py)
+        a = load_params_npz(str(one / "m" / "syn" / f"{stem}.npz"))
+        b = load_params_npz(str(two / "m" / "syn" / f"{stem}.npz"))
+        assert [p for p, _ in _leaves(a)] == [p for p, _ in _leaves(b)]
+        for k in ("dense1", "final_out"):
+            assert np.abs(b[k]["w"] - a[k]["w"]).max() < 1e-3
+        ha = (one / "out" / f"{stem}_hisroty.csv").read_text().splitlines()[1].split(",")
+        hb = (two / "out" / f"{stem}_hisroty.csv").read_text().splitlines()[1].split(",")
+        for col in (0, 2):                               # loss, val_loss
+            np.testing.assert_allclose(float(hb[col]), float(ha[col]), rtol=1e-3)
+        assert a["final_out"]["b"].shape == (n_classes,)
+
+
+def _leaves(tree, prefix=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(tree[k])

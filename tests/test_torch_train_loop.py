@@ -170,7 +170,7 @@ def test_train_model_needs_a_card_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_loop.train_model(x, sig, y, n_classes=6, window=T, epochs=1,
                               batch_size=BATCH, verbose=False)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         port_loop.train_model(x, sig, y, n_classes=6, window=T, epochs=1,
                               batch_size=BATCH, verbose=False, device="cpu",
                               mesh=object())
