@@ -55,16 +55,22 @@ Phases, each printing one JSON line:
              plain version (the same bars), and its time on as many windows
              as the T = 11 run.
 6. host    - the host side on the card's host, on the 40 synthetic reads
-             of the gather phase: the usable CPUs and /dev/shm's size and
-             free bytes; per-read ms in one process of fast5 decode,
-             compact_read_numpy, the host library's compaction, numpy
-             encode_read, the library's encode and merge (random labels
-             from the seed); then a PrepPool at 1 worker and at the CLI's
-             worker count (min(8, CPUs)): its start-up seconds and its
-             reads/s over the 40 files listed 4 times (no device work).
-             Every pool WireRead must be byte-identical to
-             encode_read(compact_read_numpy(get_read_data(...))), and no
-             read may fall back from the library to numpy.
+             of the gather phase and on gzip copies of them (written from
+             the same seed: chunked, shuffled, deflated): the usable CPUs,
+             /dev/shm's size and free bytes, whether libz loaded; for each
+             layout, per-read ms in one process of fast5 decode,
+             compact_read_numpy, the host library's compaction, the
+             library's one-call ingest (compact_fast5: decode and
+             compaction), numpy encode_read, the library's encode and merge
+             (random labels from the seed); then a PrepPool at 1 worker and
+             at the CLI's worker count (min(8, CPUs)): its start-up seconds
+             and its reads/s over the 40 files listed 4 times (no device
+             work). Every ingest result must equal
+             compact_read(get_read_data(...)), every WireRead (the ingest's
+             and the pool's, on both layouts) be byte-identical to
+             encode_read(compact_read_numpy(get_read_data(...))) of the
+             contiguous file, and no read may fall back from the library to
+             the Python path.
 7. e2e     - writes 40 synthetic fast5 reads of ~10k bases, random weights
              (the port's init + save_keras_weights), and runs the CLI in model
              mode (prep pool of 8 workers) for fastq and fasta: one output
@@ -78,7 +84,9 @@ Phases, each printing one JSON line:
              reads are also revised with emit="labels" on the card and on
              the CPU (plain f32 path) and must agree. A third CLI run
              (fasta) revises each read 10 times (400 links to the 40 files)
-             for a steady-state rate. Last, the CLI as two
+             for a steady-state rate, and a fourth the same over 400 links
+             to the gzip copies: its output byte-identical to the third's.
+             Last, the CLI as two
              processes on the one card (--num_processes 2, --merged_output,
              --align center): the merged fasta must be byte-identical to a
              one-process --merged_output run's.
@@ -254,8 +262,13 @@ def phase_build() -> dict:
     ptxas = {src: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln]
              for src, log in logs.items()}
-    emit({"phase": "build", "seconds": round(time.time() - t0, 3),
-          "nvcc": build.nvcc_path(), "ptxas": ptxas})
+    seconds = round(time.time() - t0, 3)
+    from nanoreviser_torch import native
+
+    zlib_available = getattr(native, "zlib_available", None)
+    emit({"phase": "build", "seconds": seconds, "nvcc": build.nvcc_path(),
+          "ptxas": ptxas,
+          "zlib_loaded": zlib_available() if zlib_available else None})
     return logs
 
 
@@ -682,9 +695,11 @@ def _wire_identical(a, b) -> bool:
     return True
 
 
-def phase_host(fast5_dir: str, names: list) -> dict:
-    """The host side of the serving path on the card's host: per-read stage
-    times in one process, and the prep pool's start-up and rate."""
+def phase_host(tmp: str, fast5_dir: str, names: list) -> str:
+    """The host side of the serving path on the card's host, on the
+    contiguous files and on gzip copies of them (written here from the same
+    seed): per-read stage times in one process, and the prep pool's start-up
+    and rate. Returns the copies' directory."""
     import numpy as np
 
     from nanoreviser_torch import native
@@ -692,75 +707,95 @@ def phase_host(fast5_dir: str, names: list) -> dict:
     from nanoreviser_torch.infer.merge import merge_revision
     from nanoreviser_torch.infer.wire import encode_read
     from nanoreviser_torch.io import get_read_data
+    from nanoreviser_torch.io.synthetic import write_synthetic_dir
     from nanoreviser_torch.signal import host_prep
 
+    gz_dir = os.path.join(tmp, "fast5_gz")
+    t0 = time.time()
+    check(write_synthetic_dir(gz_dir, N_READS, READ_BASES, seed=SEED,
+                              compression="gzip") == names, "gzip copies: names differ")
+    gz_write_s = time.time() - t0
     cpus = len(os.sched_getaffinity(0))
     shm = os.statvfs("/dev/shm")
-
-    # per-read stage times, one process, each stage on every read in turn
-    paths = [os.path.join(fast5_dir, n) for n in names]
-    rng = np.random.default_rng(SEED)
-    stages = dict.fromkeys(("decode", "compact_numpy", "compact_native",
-                            "encode_numpy", "encode_native", "merge"), 0.0)
-    ref = []
     fb0 = host_prep.native_fallbacks()
-    for p in paths:
-        t = time.perf_counter()
-        rd = get_read_data(p)
-        t1 = time.perf_counter()
-        c_np = host_prep.compact_read_numpy(rd)
-        t2 = time.perf_counter()
-        c = host_prep.compact_read(rd)
-        t3 = time.perf_counter()
-        w = encode_read(c)
-        t4 = time.perf_counter()
-        n, m = c.n_bases, c.n_samples
-        rows = {"sig8": m, "posd": n, "evf": n, "codes": n, "sig_esc_idx": m,
-                "sig_esc_delta": m, "dur_esc_idx": n, "dur_esc_f32": n}
-        out = {k: np.empty((rows.get(k, n), 4) if w else rows.get(k, n), dt)
-               for k, (dt, w) in native.ENCODE_OUT.items()}
-        t5 = time.perf_counter()
-        native.encode_wire_native(c, out)
-        t6 = time.perf_counter()
-        y1 = rng.choice(6, n - WINDOW, p=[0.85, 0.03, 0.03, 0.03, 0.03, 0.03])
-        y2 = rng.integers(0, 5, n - WINDOW)
-        t7 = time.perf_counter()
-        merge_revision(rd.bases, y1, y2, align="center", window=WINDOW,
-                       center_offset=(WINDOW - 1) // 2)
-        t8 = time.perf_counter()
-        for k, dt in zip(stages, (t1 - t, t2 - t1, t3 - t2, t4 - t3, t6 - t5, t8 - t7)):
-            stages[k] += dt
-        check(_wire_identical(w, encode_read(c_np)), "native compaction != numpy")
-        ref.append(w)
-    per_read_ms = {k: v * 1e3 / len(paths) for k, v in stages.items()}
-    check(host_prep.native_fallbacks() == fb0, "host library refused a read")
+    per_read_ms, pools, ref = {}, {}, None
+    for layout, src in (("contiguous", fast5_dir), ("gzip", gz_dir)):
+        # per-read stage times, one process, each stage on every read in turn
+        paths = [os.path.join(src, n) for n in names]
+        rng = np.random.default_rng(SEED)
+        stages = dict.fromkeys(("decode", "compact_numpy", "compact_native",
+                                "ingest_native", "encode_numpy", "encode_native",
+                                "merge"), 0.0)
+        wires = []
+        for p in paths:
+            t = time.perf_counter()
+            rd = get_read_data(p)
+            t1 = time.perf_counter()
+            c_np = host_prep.compact_read_numpy(rd)
+            t2 = time.perf_counter()
+            c = host_prep.compact_read(rd)
+            t3 = time.perf_counter()
+            ing = host_prep.compact_fast5(p)
+            t4 = time.perf_counter()
+            w = encode_read(c)
+            t5 = time.perf_counter()
+            n, m = c.n_bases, c.n_samples
+            rows = {"sig8": m, "posd": n, "evf": n, "codes": n, "sig_esc_idx": m,
+                    "sig_esc_delta": m, "dur_esc_idx": n, "dur_esc_f32": n}
+            out = {k: np.empty((rows.get(k, n), 4) if w else rows.get(k, n), dt)
+                   for k, (dt, w) in native.ENCODE_OUT.items()}
+            t6 = time.perf_counter()
+            native.encode_wire_native(c, out)
+            t7 = time.perf_counter()
+            y1 = rng.choice(6, n - WINDOW, p=[0.85, 0.03, 0.03, 0.03, 0.03, 0.03])
+            y2 = rng.integers(0, 5, n - WINDOW)
+            t8 = time.perf_counter()
+            merge_revision(rd.bases, y1, y2, align="center", window=WINDOW,
+                           center_offset=(WINDOW - 1) // 2)
+            t9 = time.perf_counter()
+            for k, dt in zip(stages, (t1 - t, t2 - t1, t3 - t2, t4 - t3, t5 - t4,
+                                      t7 - t6, t9 - t8)):
+                stages[k] += dt
+            check(_wire_identical(ing, c), f"{layout}: ingest != compact_read(get_read_data)")
+            check(_wire_identical(w, encode_read(c_np)), f"{layout}: native compaction != numpy")
+            check(_wire_identical(encode_read(ing), w), f"{layout}: ingest's wire != numpy's")
+            wires.append(w)
+        per_read_ms[layout] = {k: v * 1e3 / len(paths) for k, v in stages.items()}
+        check(host_prep.native_fallbacks() == fb0, f"{layout}: host library refused a read")
+        if ref is None:
+            ref = wires
+        check(all(_wire_identical(a, b) for a, b in zip(wires, ref)),
+              f"{layout}: reads differ from the contiguous files'")
 
-    # the pool: start-up, then the 40 files listed 4 times, no device work
-    items = names * 4
-    pools = {}
-    for n_workers in sorted({1, min(8, cpus)}):
-        with PrepPool(n_workers) as pool:
-            start_s = pool.ready()
-            t0 = time.perf_counter()
-            n_items = 0
-            for k, (fn, wire, err) in enumerate(pool.stream(fast5_dir, items)):
-                check(err is None and fn == items[k], f"pool: {fn} failed: {err}")
-                check(_wire_identical(wire, ref[k % len(names)]),
-                      f"pool WireRead of {fn} != encode_read(compact_read_numpy)")
-                n_items += 1
-            secs = time.perf_counter() - t0
-            check(n_items == len(items), f"pool yielded {n_items} of {len(items)}")
-            check(pool.native_fallbacks == 0,
-                  f"{pool.native_fallbacks} native fallbacks in the pool")
-        pools[n_workers] = {"start_seconds": start_s, "seconds": secs,
-                            "reads_per_s": len(items) / secs}
+        # the pool: start-up, then the 40 files listed 4 times, no device work
+        items = names * 4
+        pools[layout] = {}
+        for n_workers in sorted({1, min(8, cpus)}):
+            with PrepPool(n_workers) as pool:
+                start_s = pool.ready()
+                t0 = time.perf_counter()
+                n_items = 0
+                for k, (fn, wire, err) in enumerate(pool.stream(src, items)):
+                    check(err is None and fn == items[k], f"pool: {fn} failed: {err}")
+                    check(_wire_identical(wire, ref[k % len(names)]),
+                          f"pool WireRead of {fn} != encode_read(compact_read_numpy)")
+                    n_items += 1
+                secs = time.perf_counter() - t0
+                check(n_items == len(items), f"pool yielded {n_items} of {len(items)}")
+                check(pool.native_fallbacks == 0,
+                      f"{pool.native_fallbacks} native fallbacks in the pool")
+            pools[layout][n_workers] = {"start_seconds": start_s, "seconds": secs,
+                                        "reads_per_s": len(items) / secs}
+    sizes = {layout: sum(os.path.getsize(os.path.join(src, n)) for n in names)
+             for layout, src in (("contiguous", fast5_dir), ("gzip", gz_dir))}
     info = {"phase": "host", "cpus": cpus, "dev_shm_bytes": shm.f_blocks * shm.f_frsize,
             "dev_shm_free_bytes": shm.f_bavail * shm.f_frsize,
-            "reads": len(names),
-            "per_read_ms": per_read_ms, "pool_items": len(items),
+            "reads": len(names), "gzip_write_seconds": gz_write_s,
+            "file_bytes": sizes, "zlib_loaded": native.zlib_available(),
+            "per_read_ms": per_read_ms, "pool_items": 4 * len(names),
             "pool": pools, "native_fallbacks": 0, "wire_identical": True}
     emit(info)
-    return info
+    return gz_dir
 
 
 def _free_port() -> int:
@@ -810,10 +845,12 @@ def two_process_merged(tmp: str, weights, fast5_dir: str) -> dict:
     return {"merged_identical": True, "records": a.count(b">"), "seconds": secs}
 
 
-def phase_e2e(tmp: str, weights, fast5_dir: str, names: list, full: bool = True):
-    """The CLI runs; with ``full``, also the card-vs-CPU label check and the
-    two-process run. An older checkout without the prep pool runs the CLI
-    runs alone."""
+def phase_e2e(tmp: str, weights, fast5_dir: str, names: list, full: bool = True,
+              gz_dir: str | None = None):
+    """The CLI runs (with ``gz_dir``, also 400 links to the gzip copies,
+    whose output must equal the contiguous 400-link run's); with ``full``,
+    also the card-vs-CPU label check and the two-process run. An older
+    checkout without the prep pool runs the CLI runs alone."""
     import concurrent.futures as cf
     import multiprocessing.pool as mp_pool
 
@@ -878,15 +915,19 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list, full: bool = True)
     for k in kernels:
         k.launches = 0
     runs = {}
-    # a steady-state run: each read 10 times, as links under new names
-    many = os.path.join(tmp, "fast5_x10")
-    os.makedirs(many)
-    for k in range(10):
-        for n in names:
-            os.symlink(os.path.join(fast5_dir, n), os.path.join(many, f"x{k}_{n}"))
-    for tag, fmt, src, copies in (("fastq", "fastq", fast5_dir, 1),
-                                  ("fasta", "fasta", fast5_dir, 1),
-                                  ("fasta_x10", "fasta", many, 10)):
+    # steady-state runs: each read 10 times, as links under new names, to
+    # the contiguous files and to their gzip copies
+    plan = [("fastq", "fastq", fast5_dir, 1), ("fasta", "fasta", fast5_dir, 1)]
+    for tag, files in (("fasta_x10", fast5_dir), ("fasta_x10_gzip", gz_dir)):
+        if files is None:
+            continue
+        many = os.path.join(tmp, tag)
+        os.makedirs(many)
+        for k in range(10):
+            for n in names:
+                os.symlink(os.path.join(files, n), os.path.join(many, f"x{k}_{n}"))
+        plan.append((tag, "fasta", many, 10))
+    for tag, fmt, src, copies in plan:
         out_dir = os.path.join(tmp, f"out_{tag}")
         failed_fn = os.path.join(tmp, f"failed_{tag}.txt")
         steps0 = steps[0]
@@ -919,6 +960,13 @@ def phase_e2e(tmp: str, weights, fast5_dir: str, names: list, full: bool = True)
                      "pool_start_seconds": pool_start[-1],
                      "batches": steps[0] - steps0,
                      "process_seconds": dict(spent)}
+    if gz_dir is not None:
+        a, b = (os.path.join(tmp, f"out_{t}") for t in ("fasta_x10", "fasta_x10_gzip"))
+        outs = sorted(os.listdir(a))
+        check(outs == sorted(os.listdir(b)), "gzip run: output files differ")
+        check(all(open(os.path.join(a, n), "rb").read() == open(os.path.join(b, n), "rb").read()
+                  for n in outs), "gzip run's output != the contiguous run's")
+        runs["fasta_x10_gzip"]["identical_to_fasta_x10"] = True
     launches = {k.name: k.launches for k in kernels}
     StreamingReviser._device_step = device_step
     for (cls, name, _), fn in zip(timed, originals):
@@ -1728,8 +1776,8 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         wrow = phase_windows(weights, fast5_dir, names, logs)
         torch.cuda.empty_cache()
-        phase_host(fast5_dir, names)
-        launches = phase_e2e(tmp, weights, fast5_dir, names)
+        gz_dir = phase_host(tmp, fast5_dir, names)
+        launches = phase_e2e(tmp, weights, fast5_dir, names, gz_dir=gz_dir)
         torch.cuda.empty_cache()
         phase_basecaller(tmp, fast5_dir, names)
         phase_train(tmp)

@@ -19,7 +19,9 @@ Reading
 Writing (what ``h5py`` writes by default, so the HDF5 library reads it):
 superblock v0, v1 object headers, symbol-table groups, contiguous datasets
 and v1 attributes of little-endian fixed-point, floating-point, fixed-string
-and compound types. Intermediate groups of a path are created on demand.
+and compound types; 1-D datasets also chunked (a v1 B-tree of chunks) with
+h5py's shuffle and gzip filters. Intermediate groups of a path are created
+on demand.
 
 The interface mirrors the parts of h5py the package uses: ``File(path,
 mode)``, ``f[path]``, ``group.attrs``, ``keys/values/items``,
@@ -625,11 +627,16 @@ class WGroup:
             parent.members[name] = WGroup()
         return parent.members[name]
 
-    def create_dataset(self, path: str, data) -> "WDataset":
+    def create_dataset(self, path: str, data, chunks=None, compression=None,
+                       shuffle: bool = False) -> "WDataset":
+        """h5py's keywords: ``chunks`` (a 1-tuple, 1-D data only),
+        ``compression`` None or "gzip" (zlib level 4, h5py's default) and
+        ``shuffle``; the filters need ``chunks``."""
         parent, name = self._walk(path, create=True)
         if name in parent.members:
             raise HDF5Error(f"{path} exists")
-        ds = parent.members[name] = WDataset(np.asarray(data))
+        ds = parent.members[name] = WDataset(np.asarray(data), chunks,
+                                             compression, shuffle)
         return ds
 
     def __getitem__(self, path: str):
@@ -691,34 +698,116 @@ class WGroup:
 
 
 class WDataset:
-    """A dataset being written (contiguous layout)."""
+    """A dataset being written: contiguous, or 1-D chunked with a v1 B-tree
+    of chunks and optional shuffle and gzip filters."""
 
-    def __init__(self, data: np.ndarray):
+    GZIP_LEVEL = 4        # h5py's default for compression="gzip"
+    CHUNK_K = 32          # the superblock's default: 2K chunks per B-tree node
+
+    def __init__(self, data: np.ndarray, chunks=None, compression=None,
+                 shuffle: bool = False):
         if data.dtype.kind == "U":
             data = np.char.encode(data, "utf-8")
         # (np.ascontiguousarray would turn a scalar into shape (1,))
         self.data = np.array(data, order="C", copy=True)
         self.attrs: dict = {}
+        if compression not in (None, "gzip"):
+            raise HDF5Error(f"compression {compression!r} is not supported")
+        if chunks is None and (compression or shuffle):
+            raise HDF5Error("filters need a chunked layout")
+        if chunks is not None and (self.data.ndim != 1 or len(chunks) != 1
+                                   or int(chunks[0]) < 1):
+            raise HDF5Error(f"chunks {chunks} for shape {self.data.shape}: "
+                            f"only 1-D chunking is supported")
+        self.chunk = None if chunks is None else int(chunks[0])
+        self.filters = ([2] if shuffle else []) + ([1] if compression else [])
+
+    def _filter_message(self) -> bytes:
+        body = struct.pack("<BB6x", 1, len(self.filters))
+        for fid in self.filters:
+            name, val = {1: (b"deflate\0", self.GZIP_LEVEL),
+                         2: (b"shuffle\0", self.data.dtype.itemsize)}[fid]
+            body += struct.pack("<HHHH", fid, len(name), 1, 1) + name
+            body += struct.pack("<I4x", val)       # one value, padded to 8
+        return _message(0x0B, body)
 
     def _messages(self, data_addr: int) -> list[bytes]:
-        nbytes = self.data.nbytes
-        msgs = [
-            _message(0x01, _encode_dataspace(self.data.shape)),
-            _message(0x03, _encode_datatype(self.data.dtype)),
-            # fill value v2: allocation late, write on allocation, undefined
-            _message(0x05, struct.pack("<BBBB", 2, 2, 0, 0)),
-            _message(0x08, struct.pack("<BBQQ", 3, 1,
-                                       data_addr if nbytes else UNDEF, nbytes)),
-        ]
+        msgs = [_message(0x01, _encode_dataspace(self.data.shape)),
+                _message(0x03, _encode_datatype(self.data.dtype))]
+        if self.chunk is None:
+            nbytes = self.data.nbytes
+            msgs += [
+                # fill value v2: allocation late, write on allocation, undefined
+                _message(0x05, struct.pack("<BBBB", 2, 2, 0, 0)),
+                _message(0x08, struct.pack("<BBQQ", 3, 1,
+                                           data_addr if nbytes else UNDEF, nbytes)),
+            ]
+        else:
+            # fill value v2: allocation incremental, the default (zero) fill
+            msgs.append(_message(0x05, struct.pack("<BBBBI", 2, 3, 2, 1, 0)))
+            if self.filters:
+                msgs.append(self._filter_message())
+            msgs.append(_message(0x08, struct.pack(
+                "<BBBQII", 3, 2, 2, data_addr, self.chunk, self.data.dtype.itemsize)))
         return msgs + [_attr_message(k, v) for k, v in self.attrs.items()]
 
     def _size(self) -> int:
         return 16 + sum(len(m) for m in self._messages(0))
 
+    def _chunk_bytes(self, k: int) -> bytes:
+        """Chunk ``k`` as stored: padded to the chunk size with zeros, then
+        shuffled and deflated."""
+        c, item = self.chunk, self.data.dtype.itemsize
+        raw = self.data[k * c : (k + 1) * c].tobytes()
+        raw += bytes(c * item - len(raw))
+        if 2 in self.filters:
+            raw = np.frombuffer(raw, np.uint8).reshape(c, item).T.tobytes()
+        if 1 in self.filters:
+            raw = zlib.compress(raw, self.GZIP_LEVEL)
+        return raw
+
+    def _btree(self, alloc: _Alloc) -> int:
+        """Write the chunks and their v1 B-tree (type 1); returns the root's
+        address. A key is (stored size, filter mask, offset, 0); a node's
+        last key bounds its last chunk."""
+        n = len(self.data)
+        if n == 0:
+            return UNDEF
+        c, per_node = self.chunk, 2 * self.CHUNK_K
+        node_size = 24 + (per_node + 1) * 24 + per_node * 8
+        entries = []                               # (first key, child address)
+        for k in range(-(-n // c)):
+            blob = self._chunk_bytes(k)
+            addr = alloc.reserve(len(blob))
+            alloc.put(addr, blob)
+            entries.append(((len(blob), k * c), addr))
+        end_key = (0, -(-n // c) * c)
+        level = 0
+        while True:
+            nodes = [entries[i : i + per_node] for i in range(0, len(entries), per_node)]
+            addrs = [alloc.reserve(node_size) for _ in nodes]
+            for j, group in enumerate(nodes):
+                left = addrs[j - 1] if j > 0 else UNDEF
+                right = addrs[j + 1] if j + 1 < len(nodes) else UNDEF
+                last = nodes[j + 1][0][0] if j + 1 < len(nodes) else end_key
+                node = b"TREE" + struct.pack("<BBHQQ", 1, level, len(group), left, right)
+                for (size, off), child in group:
+                    node += struct.pack("<IIQQQ", size, 0, off, 0, child)
+                node += struct.pack("<IIQQ", last[0], 0, last[1], 0)
+                alloc.put(addrs[j], node + bytes(node_size - len(node)))
+            if len(nodes) == 1:
+                return addrs[0]
+            entries = [(group[0][0], a) for group, a in zip(nodes, addrs)]
+            level += 1
+
     def _serialize(self, alloc: _Alloc, addr: int):
-        data_addr = alloc.reserve(self.data.nbytes) if self.data.nbytes else UNDEF
-        if self.data.nbytes:
+        if self.chunk is not None:
+            data_addr = self._btree(alloc)
+        elif self.data.nbytes:
+            data_addr = alloc.reserve(self.data.nbytes)
             alloc.put(data_addr, self.data.tobytes())
+        else:
+            data_addr = UNDEF
         alloc.put(addr, _object_header(self._messages(data_addr)))
         return None
 
@@ -778,8 +867,8 @@ class File:
     def create_group(self, path):
         return self._root.create_group(path)
 
-    def create_dataset(self, path, data):
-        return self._root.create_dataset(path, data=data)
+    def create_dataset(self, path, data, **kwargs):
+        return self._root.create_dataset(path, data=data, **kwargs)
 
     def close(self) -> None:
         if self.mode == "w" and self._root is not None:

@@ -13,6 +13,12 @@ Writes the layout ``io.fast5.get_read_data`` and ``extract_fastq`` read:
 * ``/Raw/Reads/Read_<n>/Signal``: int16 around 450 +- 40, with a
   ``start_time`` attribute.
 
+With ``compression="gzip"`` the Events are stored in chunks of 256 rows
+and the Signal in chunks of 8,192 samples, each shuffled and deflated at
+zlib level 4 (h5py's default). Real single-read fast5 files are commonly
+stored chunked and gzip-compressed; no such file is in the repository, so
+these stand in for them where the ingest is tested and timed.
+
 Events sit about 9 samples apart (4 kHz at 450 bases/s); about one event in
 60 stalls for 60-200 samples, ~0.3% of samples spike by 150-400 and ~0.2%
 of calls are 'N', so that compaction and every escape list of the wire
@@ -95,35 +101,41 @@ def synthetic_read_arrays(n_bases: int, rng: np.random.Generator):
 
 
 def write_synthetic_fast5(path: str | os.PathLike, n_bases: int,
-                          rng: np.random.Generator, read_number: int = 1) -> str:
-    """Write one synthetic read; returns its decoded base sequence."""
+                          rng: np.random.Generator, read_number: int = 1,
+                          compression: str | None = None) -> str:
+    """Write one synthetic read; returns its decoded base sequence.
+    ``compression``: None (contiguous datasets) or "gzip" (chunked)."""
     bases, events, signal, fq_bases, fq_qual = synthetic_read_arrays(n_bases, rng)
+    gz = {} if compression is None else {"compression": compression, "shuffle": True}
     group = "/Analyses/Basecall_1D_000"
     sub = group + "/BaseCalled_template"
     with hdf5.File(path, "w") as f:
         g = f.create_group(group)
         g.attrs["version"] = "2.3.1"
         s = f.create_group(sub)
-        s.create_dataset("Events", data=events)
+        s.create_dataset("Events", data=events, chunks=(256,) if gz else None, **gz)
         fastq = f"@read_{read_number}\n{fq_bases}\n+\n{fq_qual}\n"
         s.create_dataset("Fastq", data=np.bytes_(fastq.encode()))
         r = f.create_group(f"/Raw/Reads/Read_{read_number}")
         r.attrs["start_time"] = np.uint64(1000 * read_number)
         r.attrs["read_number"] = np.int32(read_number)
-        r.create_dataset("Signal", data=signal)
+        r.create_dataset("Signal", data=signal, chunks=(8192,) if gz else None, **gz)
     return bases
 
 
 def write_synthetic_dir(out_dir: str | os.PathLike, n_reads: int, n_bases,
-                        seed: int) -> list[str]:
+                        seed: int, compression: str | None = None) -> list[str]:
     """``n_reads`` files ``read_<k>.fast5`` in ``out_dir``; ``n_bases`` is an
-    int or a (low, high) range. Returns the file names, sorted."""
+    int or a (low, high) range; ``compression`` as in
+    ``write_synthetic_fast5`` (one seed gives the same reads either way).
+    Returns the file names, sorted."""
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     names = []
     for k in range(n_reads):
         n = n_bases if isinstance(n_bases, int) else int(rng.integers(*n_bases))
         name = f"read_{k:04d}.fast5"
-        write_synthetic_fast5(os.path.join(out_dir, name), n, rng, k + 1)
+        write_synthetic_fast5(os.path.join(out_dir, name), n, rng, k + 1,
+                              compression)
         names.append(name)
     return names

@@ -1,30 +1,48 @@
 """ctypes bindings of the host library (``src/nanorev.cpp``).
 
 Counterpart of ``nanoreviser_tpu/native/__init__.py:60-385``, for the
-three entries the serving path calls and the training labeller's aligner:
+entries the serving path calls and the training labeller's aligner:
 
+* ``fast5_compact_native``       - the fast5 ingest: decode and compaction
+                                   of one file in one call
+                                   (``compact_read(get_read_data(path))``);
 * ``prep_read_native_arrays``    - windowed prep (``prep_read_numpy``);
 * ``compact_read_native_arrays`` - compaction (``compact_read_numpy``);
 * ``encode_wire_native``         - wire encode (``infer.wire.encode_read``);
 * ``banded_sw_native``           - the banded aligner
                                    (``align.sw.banded_sw_torch``).
 
-Each is exact with its twin (``tests/test_torch_native.py``,
-``tests/test_torch_align.py``) and runs with the GIL released. The library
-is built by g++ and loaded at the first call, never at import
-(``native.build``); a build that fails raises.
+Each is exact with its twin (``tests/test_torch_fast5_native.py``,
+``tests/test_torch_native.py``, ``tests/test_torch_align.py``) and runs
+with the GIL released. The library is built by g++ and loaded at the first
+call, never at import (``native.build``); a build that fails raises.
 A call the library refuses raises :class:`NativeError` with its return
 code; ``CAPACITY`` (-2) means a caller's output buffer was too small.
+
+The ingest reads the HDF5 subset that ``io.hdf5`` reads (superblocks 0-3,
+object headers v1/v2, symbol-table and compact-link groups, compact,
+contiguous and v1-B-tree chunked layouts with the deflate and shuffle
+filters, attributes v1-3) with its own C++ reader; the JAX package's
+counterpart loads h5py's libhdf5, which the card's host does not have.
+Deflate goes through zlib, which the library loads with ``dlopen`` at first
+use, so the library builds without zlib's header and runs, compressed files
+aside, without zlib (``zlib_available``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 
 import numpy as np
 
 CAPACITY = -2
+# nr_fast5_compact's other codes: INVALID (-1, the decoded arrays are
+# refused by the compaction), -3 open or malformed file, -4 events too short,
+# -5 signal shorter than the events, and
+SUBSET = -6         # outside the HDF5 subset the library reads
+NO_ZLIB = -7        # a compressed dataset and no libz
 
 _lib = None
 _lock = threading.Lock()
@@ -32,6 +50,16 @@ _lock = threading.Lock()
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _DBL_P = ctypes.POINTER(ctypes.c_double)
 _SIGNATURES = {
+    "nr_fast5_compact": (ctypes.c_int64, [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,  # path, group, subgroup
+        ctypes.c_int,             # qlen
+        _P, _I64,                 # bases, capacity (rows of pos0/vlen/feats too)
+        _DBL_P, _DBL_P,           # shift, scale (out)
+        _P, _I64,                 # csig, capacity
+        _P, _P, _P,               # pos0, vlen, feats
+        _P,                       # counts out [2]: bases, samples
+    ]),
+    "nr_zlib_loaded": (ctypes.c_int, []),
     "nr_prep_read": (ctypes.c_int, [
         _P, _I64,                 # tail, n_samples
         _P, _I64,                 # starts, n_bases
@@ -69,11 +97,13 @@ _SIGNATURES = {
 
 
 class NativeError(RuntimeError):
-    """The library refused a call; ``rc`` is its return code."""
+    """The library refused a call; ``rc`` is its return code. ``need``:
+    the (bases, samples) a ``CAPACITY`` refusal of the ingest asks for."""
 
-    def __init__(self, entry: str, rc: int):
+    def __init__(self, entry: str, rc: int, need: tuple | None = None):
         super().__init__(f"{entry} failed (rc={rc})")
         self.rc = rc
+        self.need = need
 
 
 def load() -> ctypes.CDLL:
@@ -107,10 +137,11 @@ def _read_inputs(tail, starts, bases: str, durations, ab_mean, ab_std):
 
 def _starts_in_range(starts: np.ndarray, n_samples: int) -> bool:
     """The library copies [st - 25, st + 25) clamped to the signal: every
-    start must lie inside it, in order."""
+    start must lie inside it, in order (compared, not subtracted: an int32
+    difference could wrap)."""
     return (len(starts) > 0 and n_samples > 0 and int(starts[0]) >= 0
             and int(starts[-1]) < n_samples
-            and bool((np.diff(starts) >= 0).all()))
+            and bool((starts[1:] >= starts[:-1]).all()))
 
 
 def _check_out(arr, dtype, min_len: int, name: str, width: int | None = None):
@@ -193,6 +224,54 @@ def compact_read_native_arrays(tail, starts, bases: str, durations, ab_mean,
         raise NativeError("nr_compact_read", m)
     return (csig[:m], pos0[:n], vlen[:n], feats[:n],
             float(shift.value), float(scale.value))
+
+
+# the ingest's output rows and samples when its caller gives no arrays (a
+# 10k-base read needs ~1e4 and ~1e5); a larger read is refused with its
+# sizes (``CAPACITY``)
+INGEST_BASES, INGEST_SAMPLES = 1 << 16, 1 << 20
+
+
+def zlib_available() -> bool:
+    """Whether the library loaded libz (compressed fast5 files need it)."""
+    return bool(load().nr_zlib_loaded())
+
+
+def fast5_compact_native(path, basecall_group: str, basecall_subgroup: str,
+                         query_len: int = 50, out: tuple | None = None):
+    """(bases str, csig i16 [M], pos0 i32 [N], vlen u8 [N], feats f16 [N, 6],
+    shift, scale) of one fast5 by ``nr_fast5_compact``: the decode of
+    ``io.fast5.get_read_data`` and the compaction of ``compact_read`` in one
+    call. ``out``: (csig, pos0, vlen, feats[, bases u8]) arrays to fill in
+    place (csig's length is the sample capacity, the shortest of the others
+    the base capacity); the returned arrays are their filled prefixes.
+    Raises ``NativeError``: rc ``CAPACITY`` with ``need`` = (bases, samples)
+    when the arrays are too small, any other code when the library refuses
+    the file (a read the Python path may still read, or fail)."""
+    lib = load()
+    if out is None:
+        out = (np.empty(INGEST_SAMPLES, np.int16), np.empty(INGEST_BASES, np.int32),
+               np.empty(INGEST_BASES, np.uint8), np.empty((INGEST_BASES, 6), np.float16))
+    csig, pos0, vlen, feats = out[:4]
+    bases = out[4] if len(out) > 4 else np.empty(len(pos0), np.uint8)
+    for arr, dt, name, w in ((csig, np.int16, "csig", None), (pos0, np.int32, "pos0", None),
+                             (vlen, np.uint8, "vlen", None), (feats, np.float16, "feats", 6),
+                             (bases, np.uint8, "bases", None)):
+        _check_out(arr, dt, 0, name, w)
+    cap = min(len(pos0), len(vlen), len(feats), len(bases))
+    shift, scale = ctypes.c_double(), ctypes.c_double()
+    counts = np.zeros(2, np.int64)
+    n = lib.nr_fast5_compact(
+        os.fsencode(path), basecall_group.encode(), basecall_subgroup.encode(),
+        query_len, bases.ctypes.data, cap, ctypes.byref(shift), ctypes.byref(scale),
+        csig.ctypes.data, len(csig), pos0.ctypes.data, vlen.ctypes.data,
+        feats.ctypes.data, counts.ctypes.data)
+    if n < 0:
+        need = (int(counts[0]), int(counts[1])) if n == CAPACITY else None
+        raise NativeError("nr_fast5_compact", n, need)
+    m = int(counts[1])
+    return (bases[:n].tobytes().decode("ascii"), csig[:m], pos0[:n], vlen[:n],
+            feats[:n], float(shift.value), float(scale.value))
 
 
 ENCODE_OUT = {  # name: (dtype, columns)

@@ -26,10 +26,13 @@ nanorevtrainutils.py:160-169):
 
 ``prep_read`` and ``compact_read`` run the host library (``native``,
 C++, bit-exact with the numpy functions; the windowed prep's pad columns
-are zero there). A read the library refuses for a reason other than the
-size of the caller's buffers is run again on the numpy path, which raises
-the package's own error for a bad read; ``native_fallbacks`` counts those
-reads in this process.
+are zero there), and ``compact_fast5`` decodes and compacts a file in one
+library call (``nr_fast5_compact``, bit-exact with
+``compact_read(get_read_data(path))``). A read the library refuses for a
+reason other than the size of the caller's buffers is run again on the
+Python path, which raises the package's own error for a bad read;
+``native_fallbacks`` counts the reads in this process that the Python path
+read after the library refused them.
 
 This module and everything it imports stay free of torch: the prep pool's
 ``spawn`` workers (``infer.hostpipe``) import it.
@@ -53,8 +56,9 @@ _native_fallbacks = 0
 
 
 def native_fallbacks() -> int:
-    """Reads this process ran again on the numpy path after the host
-    library refused them (a retry with larger buffers is not counted)."""
+    """Reads this process ran again on the Python path (``io.hdf5``, numpy)
+    after the host library refused them (a retry with larger buffers is not
+    counted)."""
     return _native_fallbacks
 
 
@@ -63,7 +67,7 @@ def _fall_back(exc: Exception) -> None:
     _native_fallbacks += 1
     if _native_fallbacks == 1:
         logging.getLogger("nanoreviser_torch").warning(
-            "host library refused a read (%s); running it on the numpy path",
+            "host library refused a read (%s); running it on the Python path",
             exc)
 
 
@@ -293,9 +297,40 @@ def compact_fast5(
     basecall_subgroup: str = "BaseCalled_template",
     out: tuple | None = None,
 ) -> CompactRead:
-    """Decode (``io.fast5.get_read_data``) and compact one fast5."""
-    return compact_read(
-        get_read_data(path, basecall_group, basecall_subgroup), out=out)
+    """Decode and compact one fast5 in one host-library call
+    (``nr_fast5_compact``), equal to ``compact_read(get_read_data(path))``.
+
+    ``out``: (csig, pos0, vlen, feats[, bases]) arrays to fill in place; a
+    read larger than them is compacted once more into arrays of the size the
+    library reports. A file the library refuses is read again by
+    ``io.fast5.get_read_data``: a bad read raises its ``Fast5Error`` there,
+    and a read the Python path does read is compacted by ``compact_read``
+    and counted in ``native_fallbacks``."""
+    try:
+        try:
+            return _ingest(path, basecall_group, basecall_subgroup, out)
+        except native.NativeError as exc:
+            if exc.rc != native.CAPACITY:
+                raise
+            n, m = exc.need
+            return _ingest(path, basecall_group, basecall_subgroup,
+                           (np.empty(m, np.int16), np.empty(n, np.int32),
+                            np.empty(n, np.uint8), np.empty((n, 6), np.float16)))
+    except native.NativeError as exc:
+        refused = exc
+    rd = get_read_data(path, basecall_group, basecall_subgroup)
+    before = _native_fallbacks
+    c = compact_read(rd, out=None if out is None else out[:4])
+    if _native_fallbacks == before:
+        _fall_back(refused)
+    return c
+
+
+def _ingest(path: str, group: str, subgroup: str, out) -> CompactRead:
+    bases, csig, pos0, vlen, feats, shift, scale = native.fast5_compact_native(
+        path, group, subgroup, QUERY_LEN, out=out)
+    return CompactRead(bases=bases, csig=csig, pos0=pos0, vlen=vlen,
+                       feats=feats, shift=shift, scale=scale)
 
 
 # ---- the prep pool's worker entry points (infer.hostpipe) ------------------
@@ -314,12 +349,14 @@ def _pool_init(ready) -> None:
 
 
 def _compact_scratch(cap_bases: int, cap_samples: int) -> tuple:
-    """This process's reusable compaction outputs (csig, pos0, vlen, feats)."""
+    """This process's reusable ingest outputs (csig, pos0, vlen, feats,
+    bases)."""
     key = (cap_bases, cap_samples)
     s = _WORKER_SCRATCH.get(key)
     if s is None:
         s = (np.empty(cap_samples, np.int16), np.empty(cap_bases, np.int32),
-             np.empty(cap_bases, np.uint8), np.empty((cap_bases, 6), np.float16))
+             np.empty(cap_bases, np.uint8), np.empty((cap_bases, 6), np.float16),
+             np.empty(cap_bases, np.uint8))
         _WORKER_SCRATCH[key] = s
     return s
 
@@ -327,7 +364,7 @@ def _compact_scratch(cap_bases: int, cap_samples: int) -> tuple:
 def _compact_bounded(path: str, group: str, subgroup: str, cap_bases: int,
                      cap_samples: int) -> CompactRead:
     """``compact_fast5`` into this process's scratch arrays; a read beyond
-    them is compacted into new arrays (``compact_read``'s retry)."""
+    them is compacted into new arrays of its size."""
     return compact_fast5(path, group, subgroup,
                          out=_compact_scratch(cap_bases, cap_samples))
 
