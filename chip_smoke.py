@@ -99,7 +99,8 @@ Phases, each printing one JSON line:
              defaults (batch 512, T = 13): 8 synthetic reads of ~10k bases
              and a genome of their bases with ~2% substitutions and short
              indels; ``python -m nanoreviser_torch.cli.train`` on the card
-             (2 epochs, both models, 8 labelling threads): rc 0, every
+             (2 epochs, both models, 8 labelling threads, 8 steps per
+             CUDA-graph replay, its default): rc 0, every
              artifact, finite losses, labels beyond the match class;
              labelling ms per read; one train step on the card against the
              CPU from the trained params and one batch, dropout and TF32
@@ -118,9 +119,21 @@ Phases, each printing one JSON line:
              1e-3 relative, params within 2*lr per step; val_loss and the
              params' differences reported beside the repeated one-process
              run's (f32 drift), and steps/s of each;
-             forward, backward and optimizer ms per step
-             from CUDA events, peak memory, and one timed epoch of
-             train_model per model (steps/s, windows/s); the torch DP on
+             K steps per dispatch: replays of the 8-step and the 1-step
+             CUDA graph (make_multi_step) against eager steps from the
+             same params and generator seed, dropout on (one warm-up call
+             of 8, two replays of each graph: each step's loss within rtol
+             1e-5, accuracy 1e-6, params within 2*lr and >= 99% within
+             1e-5, moving statistics 1e-6; bit-identity reported);
+             forward, backward and optimizer ms per eager step from CUDA
+             events, and for each of eager, the 1-step graph and the
+             8-step graph (the graphs timed in turns): steps/s,
+             windows/s, the device's busy share (torch.profiler), peak
+             memory and capture seconds; the host's batch gather, stack
+             and pin per batch alone; one timed epoch of train_model per
+             model (steps/s, windows/s), its graph captures and replays
+             counted (zeroed just before, read just after: every step
+             after the first call's 8 a replay); the torch DP on
              the card against nr_banded_sw on one read (identical ops,
              both times); the exported .h5 loaded into the serving engine,
              stack_full against its bf16 plain version on them (B2's
@@ -1102,9 +1115,12 @@ def _step_parity(p_np: dict, batch_np: dict, n_classes: int, dtype) -> dict:
 
 
 def _time_steps(p_np: dict, corpus, n_classes: int, n_steps: int = 20) -> dict:
-    """Forward, backward and optimizer ms per step at batch 512 from CUDA
-    events over ``n_steps`` steps (after 3 to warm up), the steps' wall
-    rate, and the peak device memory."""
+    """Eager steps at batch 512: forward, backward and optimizer ms per
+    step from CUDA events over ``n_steps`` steps (after 3 to warm up), the
+    steps' wall rate, the peak device memory above what was allocated
+    before, the forward alone eagerly and as a CUDA-graph replay, and the
+    busy share over 5 steps. Then ``_time_graphs``; ``modes`` puts the
+    three side by side: eager, the 1-step graph and the 8-step graph."""
     import torch
 
     from nanoreviser_torch.models import ReviserConfig, reviser_apply
@@ -1112,10 +1128,14 @@ def _time_steps(p_np: dict, corpus, n_classes: int, n_steps: int = 20) -> dict:
     from nanoreviser_torch.train.loop import _uploader
     from nanoreviser_torch.train.loss import reviser_loss
     from nanoreviser_torch.train.step import (
-        default_class_weights, keras_adam, params_to_torch, update_moving_stats)
+        default_class_weights, keras_adam, make_train_step, params_to_torch,
+        update_moving_stats)
 
     dev = torch.device("cuda", 0)
     cfg = ReviserConfig(window=TRAIN_WINDOW, n_classes=n_classes)
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     params = params_to_torch(p_np, dev)
     opt = keras_adam(params, TRAIN_LR)
     cw = torch.as_tensor(default_class_weights(n_classes), device=dev)
@@ -1149,7 +1169,7 @@ def _time_steps(p_np: dict, corpus, n_classes: int, n_steps: int = 20) -> dict:
         e[3].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     ms = [[e[i].elapsed_time(e[i + 1]) for i in range(3)] for e in ev[3:]]
     mean = [sum(m[i] for m in ms) / len(ms) for i in range(3)]
 
@@ -1165,36 +1185,48 @@ def _time_steps(p_np: dict, corpus, n_classes: int, n_steps: int = 20) -> dict:
         return reviser_loss(probs, feature, params["centers"], b["y"], cw,
                             sample_weight=b["weight"])[0]
 
-    return {"steps": n_steps, "forward_ms": mean[0], "backward_ms": mean[1],
-            "optimizer_ms": mean[2], "step_ms_wall": wall * 1e3 / n_steps,
-            "steps_per_s": n_steps / wall, "windows_per_s": n_steps * TRAIN_BATCH / wall,
-            "peak_mem_bytes": peak,
-            "forward_nograd_eager_ms": cuda_ms(forward, reps=10),
-            "forward_nograd_graph_ms": graph_ms(forward, reps=1, replays=10),
-            "profiled": _profile_steps(params, opt, cfg, gen, batches[:5])}
+    eager = {"steps": n_steps, "forward_ms": mean[0], "backward_ms": mean[1],
+             "optimizer_ms": mean[2], "step_ms_wall": wall * 1e3 / n_steps,
+             "steps_per_s": n_steps / wall, "windows_per_s": n_steps * TRAIN_BATCH / wall,
+             "peak_mem_bytes": peak,
+             "forward_nograd_eager_ms": cuda_ms(forward, reps=10),
+             "forward_nograd_graph_ms": graph_ms(forward, reps=1, replays=10),
+             "profiled": _profile_steps(lambda: [step(params, opt, b, gen)
+                                                 for b in batches[:5]], 5)}
+    del params, opt, batches, b
+    torch.cuda.empty_cache()
+    graphs = _time_graphs(p_np, corpus, n_classes)
+    keys = ("steps_per_s", "windows_per_s", "peak_mem_bytes")
+    modes = {}
+    for name, row, cap in ((("eager", eager, None),)
+                           + tuple((n, r, r["capture_seconds"]) for n, r in graphs.items())):
+        prof = row["profiled"]
+        # the profiler lengthens the wall clock (twice over for a replay):
+        # the device's busy ms per step under it over the unprofiled step
+        est = (None if prof["busy_share"] is None else
+               prof["device_busy_ms"] / prof["steps"] * row["steps_per_s"] / 1e3)
+        modes[name] = dict({k: row[k] for k in keys}, capture_seconds=cap,
+                           busy_share=prof["busy_share"], busy_share_unprofiled=est)
+    return dict(eager, graphs=graphs, modes=modes)
 
 
-def _profile_steps(params, opt, cfg, gen, batches) -> dict:
-    """Device activity over a few train steps (``make_train_step``'s) under
+def _profile_steps(run, n_steps: int) -> dict:
+    """Device activity of ``run()``, ``n_steps`` train steps, under
     ``torch.profiler``: the device's busy share of the wall clock (the sum
-    of its kernel and copy times; one stream, so they do not overlap), and
-    the device events per step. The profiler's own cost lengthens the wall
-    clock, so the share is a lower bound of the share without it. Not
-    measured (None, with the error) where the profiler records no device
-    activity."""
+    of its kernel and copy times; one stream at a time, so they do not
+    overlap), and the device events per step. The profiler's own cost
+    lengthens the wall clock, so the share is a lower bound of the share
+    without it. Not measured (None, with the error) where the profiler
+    records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from nanoreviser_torch.train.step import make_train_step
-
-    step = make_train_step(cfg)
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for b in batches:
-                step(params, opt, b, gen)
+            run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1203,8 +1235,187 @@ def _profile_steps(params, opt, cfg, gen, batches) -> dict:
     if not dev:
         return {"busy_share": None, "error": "no device events recorded"}
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
-    return {"steps": len(batches), "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "busy_share": busy_us / wall_us, "device_events_per_step": len(dev) / len(batches)}
+    return {"steps": n_steps, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / wall_us, "device_events_per_step": len(dev) / n_steps}
+
+
+GRAPH_K = 8                     # train_model's default steps_per_dispatch
+
+
+def _host_stacks(corpus, y, k: int, n: int, seed: int) -> list:
+    """The first ``n`` dispatches of an epoch as ``train_model`` makes them
+    (``chunked`` stacks of ``k``, pinned)."""
+    from nanoreviser_torch.train.data import BatchIterator
+    from nanoreviser_torch.train.loop import _host_tensors, chunked
+
+    it = BatchIterator(corpus.feats, corpus.signal, y, TRAIN_BATCH, 0.01, seed,
+                       window=TRAIN_WINDOW)
+    return [_host_tensors(c, pin=True) for _, c in zip(range(n), (
+        stack for _, stack in chunked(it.epoch(), k)))]
+
+
+def _time_graphs(p_np: dict, corpus, n_classes: int, rounds: int = 2,
+                 steps_per_round: int = 48) -> dict:
+    """``make_multi_step`` on the card at K = 1 (a 1-step graph replayed
+    once per call) and K = 8 (one 8-step graph per call), from the same
+    params: per mode its own params and capturable Adam, the warm-up call
+    (eager) and the first graphed call (capture and one replay) with the
+    capture's seconds and the mode's peak memory above what was allocated
+    before it; then timed rounds of ``steps_per_round`` steps from pinned
+    stacks, the two modes in turns (1, 8, 8, 1, ...): steps/s and windows/s
+    by host clock per round; and the device's busy share over 16 steps
+    under the profiler."""
+    import torch
+
+    from nanoreviser_torch.models import ReviserConfig
+    from nanoreviser_torch.train.step import (
+        GRAPHS, keras_adam, make_multi_step, params_to_torch)
+
+    dev = torch.device("cuda", 0)
+    cfg = ReviserConfig(window=TRAIN_WINDOW, n_classes=n_classes)
+    y = corpus.y if n_classes == 6 else corpus.y2
+    modes = {}
+    for k in (1, GRAPH_K):
+        n_calls = 2 + steps_per_round // k + 16 // k
+        stacks = _host_stacks(corpus, y, k, n_calls, SEED + k)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = params_to_torch(p_np, dev)
+        opt = keras_adam(params, TRAIN_LR, capturable=True)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        multi = make_multi_step(cfg, device=dev)
+        t0 = time.perf_counter()
+        multi(params, opt, stacks[0], gen)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        cap0 = GRAPHS.capture_seconds
+        t0 = time.perf_counter()
+        out = multi(params, opt, stacks[1], gen)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(out["loss"]).all()), f"K = {k} graph: loss {out}")
+        modes[k] = {"multi": multi, "params": params, "opt": opt, "gen": gen,
+                    "stacks": stacks[2:], "k": k, "row": {
+                        "k": k, "warm_up_seconds": warm_s,
+                        "capture_seconds": GRAPHS.capture_seconds - cap0,
+                        "first_graphed_call_seconds": first_s,
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated() - base,
+                        "rounds_steps_per_s": []}}
+
+    def run(m, stacks):
+        for st in stacks:
+            m["multi"](m["params"], m["opt"], st, m["gen"])
+
+    order = [1, GRAPH_K, GRAPH_K, 1] * rounds
+    for r, k in enumerate(order):
+        m = modes[k]
+        n = steps_per_round // k
+        stacks = m["stacks"][:n]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(m, stacks)
+        torch.cuda.synchronize()
+        m["row"]["rounds_steps_per_s"].append(steps_per_round / (time.perf_counter() - t0))
+    out = {}
+    for k, m in modes.items():
+        row = m["row"]
+        rates = row["rounds_steps_per_s"]
+        row["steps_per_s"] = sum(rates) / len(rates)
+        row["windows_per_s"] = row["steps_per_s"] * TRAIN_BATCH
+        row["profiled"] = _profile_steps(
+            lambda m=m: run(m, m["stacks"][-(16 // m["k"]):]), 16)
+        out[f"graph_{k}"] = row
+    del modes
+    torch.cuda.empty_cache()
+    return out
+
+
+def _graph_parity(p_np: dict, corpus, n_classes: int) -> dict:
+    """Graph replays against eager steps from the same params and
+    generator seed, dropout on, TF32 off, both with capturable Adam: one
+    warm-up call of 8 steps (eager), two replays of the 8-step graph and two
+    of the 1-step graph, against 26 eager steps. The worst ratio of each
+    difference to its bar (the f32 one-step bars: loss rtol 1e-5, accuracy
+    1e-6, params within 2*lr and >= 99% within 1e-5 after each call, moving
+    statistics 1e-6), and whether every step was bit-identical."""
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.models import ReviserConfig
+    from nanoreviser_torch.train.step import (
+        GRAPHS, is_trained, keras_adam, make_multi_step, make_train_step,
+        param_leaves, params_to_torch)
+
+    dev = torch.device("cuda", 0)
+    cfg = ReviserConfig(window=TRAIN_WINDOW, n_classes=n_classes)
+    y = corpus.y if n_classes == 6 else corpus.y2
+    stacks = (_host_stacks(corpus, y, GRAPH_K, 3, SEED + 20)
+              + _host_stacks(corpus, y, 1, 2, SEED + 21))
+    pe, pg = params_to_torch(p_np, dev), params_to_torch(p_np, dev)
+    oe = keras_adam(pe, TRAIN_LR, capturable=True)
+    og = keras_adam(pg, TRAIN_LR, capturable=True)
+    ge = torch.Generator(device=dev).manual_seed(SEED)
+    gg = torch.Generator(device=dev).manual_seed(SEED)
+    step, multi = make_train_step(cfg), make_multi_step(cfg, device=dev)
+    counts = (GRAPHS.captures, GRAPHS.replays)
+    r = {"loss": 0.0, "accuracy": 0.0, "params_2lr": 0.0, "moving_stats": 0.0,
+         "params_within_1e-5": 1.0, "bit_identical": True, "steps": 0}
+    for stack in stacks:
+        got = multi(pg, og, stack, gg)
+        want = [step(pe, oe, {k: v[i].to(dev) for k, v in stack.items()}, ge)[0]
+                for i in range(len(stack["y"]))]
+        for m, tol in (("loss", None), ("accuracy", 1e-6)):
+            g = got[m].double().cpu().numpy()
+            w = torch.stack([x[m] for x in want]).double().cpu().numpy()
+            r["bit_identical"] &= bool(np.array_equal(g, w))
+            bar = 1e-5 * np.abs(w) if tol is None else tol
+            r[m] = max(r[m], float((np.abs(g - w) / bar).max()))
+        n_el = n_close = 0
+        for (path, a), (_, b) in zip(param_leaves(pg), param_leaves(pe)):
+            a, b = a.detach().double().cpu().numpy(), b.detach().double().cpu().numpy()
+            r["bit_identical"] &= bool(np.array_equal(a, b))
+            d = np.abs(a - b)
+            if not is_trained(path):
+                r["moving_stats"] = max(r["moving_stats"], float(
+                    (d / (1e-6 + 1e-6 * np.abs(b))).max()))
+                continue
+            r["params_2lr"] = max(r["params_2lr"], float(d.max()) / (2 * TRAIN_LR))
+            n_el += d.size
+            n_close += int((d <= 1e-5).sum())
+        r["params_within_1e-5"] = min(r["params_within_1e-5"], n_close / n_el)
+        r["steps"] += len(stack["y"])
+    r["captures"] = GRAPHS.captures - counts[0]
+    r["replays"] = GRAPHS.replays - counts[1]
+    gated = ("loss", "accuracy", "params_2lr", "moving_stats")
+    r["ok"] = (all(r[k] <= 1.0 for k in gated) and r["params_within_1e-5"] >= 0.99
+               and (r["captures"], r["replays"]) == (2, 4))
+    del multi
+    torch.cuda.empty_cache()
+    return r
+
+
+def _host_batch_ms(corpus, n: int = 64) -> dict:
+    """The host's batch work per step, alone (no device work): the gather of
+    a batch (``BatchIterator``), and the gather with the stacking by 8 and
+    the pinning that ``train_model``'s prefetch thread does."""
+    from nanoreviser_torch.train.data import BatchIterator
+    from nanoreviser_torch.train.loop import _host_tensors, chunked
+
+    def epoch():
+        it = BatchIterator(corpus.feats, corpus.signal, corpus.y, TRAIN_BATCH, 0.01,
+                           SEED, window=TRAIN_WINDOW)
+        return (b for _, b in zip(range(n), it.epoch()))
+
+    t0 = time.perf_counter()
+    for _ in epoch():
+        pass
+    gather = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    for _, stack in chunked(epoch(), GRAPH_K):
+        _host_tensors(stack, pin=True)
+    full = (time.perf_counter() - t0) * 1e3 / n
+    return {"batches": n, "gather_ms": gather, "gather_stack_pin_ms": full}
 
 
 STUB_BASECALLER = """#!{python}
@@ -1571,6 +1782,7 @@ def phase_train(tmp: str) -> dict:
     from nanoreviser_torch.train.data import (
         BatchIterator, label_read, load_training_corpus)
     from nanoreviser_torch.train.loop import load_params_npz, train_model
+    from nanoreviser_torch.train.step import GRAPHS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1642,24 +1854,39 @@ def phase_train(tmp: str) -> dict:
               for dt in (torch.float64, torch.float32)}
     for dt, r in parity.items():
         check(r["ok"], f"train step card vs CPU ({dt}) misses a bar: {r}")
+    graph_parity = _graph_parity(p1, corpus, 6)
+    check(graph_parity["ok"], f"graph replays vs eager steps miss a bar: {graph_parity}")
 
-    # 3. speed: per-step phases, and one epoch of train_model per model
-    speed = {}
+    # 3. speed: per-step phases by mode, the host's batch work, and one
+    # epoch of train_model per model (through graphs: counts zeroed just
+    # before it and read just after)
+    speed = {"host_batch": _host_batch_ms(corpus)}
     for tag, nc in (("model1", 6), ("model2", 5)):
         p = load_params_npz(os.path.join(species, f"smoke_win{TRAIN_WINDOW}_2ep_{tag}.npz"))
         steps = _time_steps(p, corpus, nc)
         y = corpus.y if nc == 6 else corpus.y2
         torch.cuda.synchronize()
+        GRAPHS.reset()
         t0 = time.perf_counter()
         _, h = train_model(corpus.feats, corpus.signal, y, n_classes=nc,
                            window=TRAIN_WINDOW, epochs=1, batch_size=TRAIN_BATCH,
                            verbose=False, device="cuda")
         secs = time.perf_counter() - t0
+        graphs = dict(vars(GRAPHS))
         n_steps = -(-(len(y) - int(len(y) * 0.01)) // TRAIN_BATCH)
         check(math.isfinite(h["loss"][0]), f"{tag} epoch loss {h}")
+        # the first call (8 steps) is the eager warm-up; every later step
+        # is a replay, of the 8-step graph or, for the steps left over, the
+        # 1-step graph
+        want = (n_steps - GRAPH_K, n_steps // GRAPH_K - 1 + n_steps % GRAPH_K,
+                1 + (n_steps % GRAPH_K > 0))
+        check(n_steps > 2 * GRAPH_K and (graphs["replayed_steps"], graphs["replays"],
+                                         graphs["captures"]) == want,
+              f"{tag} epoch of {n_steps} steps: graphs {graphs}, want {want}")
         speed[tag] = dict(steps, epoch_seconds=secs, epoch_steps=n_steps,
                           epoch_steps_per_s=n_steps / secs,
-                          epoch_windows_per_s=n_steps * TRAIN_BATCH / secs)
+                          epoch_windows_per_s=n_steps * TRAIN_BATCH / secs,
+                          epoch_graphs=graphs)
 
     # 4. the torch DP on the card against the host library, on read 0
     read = get_read_data(os.path.join(fast5_dir, names[0])).bases
@@ -1732,7 +1959,8 @@ def phase_train(tmp: str) -> dict:
             "windows": int(corpus.n_windows), "label_mix": label_mix,
             "label_ms_per_read": label_ms, "cli_seconds": cli_s,
             "cli_epoch_seconds": epoch_s, "history": history,
-            "step_parity_card_vs_cpu": parity, "speed_batch512_t13": speed,
+            "step_parity_card_vs_cpu": parity, "graph_vs_eager": graph_parity,
+            "speed_batch512_t13": speed,
             "dp_read_bases": len(q), "dp_card_seconds": card_s,
             "dp_native_seconds": host_s, "dp_identical": True,
             "trained_stack_full": {"windows": w_valid, "max_abs_dlogit_vs_bf16_plain": b2_err,

@@ -6,14 +6,22 @@ statistics, class-weighted CE and accuracy over the validation windows),
 the history dict, and the flat ``.npz`` weight format that both packages
 read.
 
-The JAX loop scans K steps per dispatch (``steps_per_dispatch``) to hide
-the host's dispatch latency. Here nothing inside an epoch waits for the
-card instead: each step is enqueued as soon as the host has built it,
-batches go up from pinned memory with ``non_blocking=True``, and the
-losses and accuracies stay on the device until the epoch ends. So the
-card runs ahead of the host by as many steps as the allocator allows, and
-``steps_per_dispatch`` is accepted for signature parity and changes
-nothing.
+K steps per dispatch (``steps_per_dispatch``, default 8), as the JAX loop
+(``nanoreviser_tpu/train/loop.py:96-133``, ``:170-195``): ``chunked``
+stacks K consecutive batches of one shape, a batch left over comes alone,
+and each stack is one call of ``train/step.py``'s ``make_multi_step``. On
+the card that call is one replay of a CUDA graph of K whole train steps.
+Measured at batch 512, T = 13 on an NVIDIA H100 80GB HBM3 (700 W,
+``chip_smoke.py`` phase train): an eager step launches ≈7,100 kernels
+and copies and takes 111-160 ms, the card busy ≈15 ms of it, since the
+host's launching sets its pace; a replayed step takes 13.5-16 ms, the
+card busy ≈13.5 ms of it (62-74 steps/s against 6.3-9.0). A thread ahead of the
+loop gathers, stacks and pins the batches (≈1.1 ms a batch), each stack
+goes up as one copy into the graph's static inputs, and the losses and
+accuracies stay on the device until the epoch ends, so nothing inside an
+epoch waits for the card. On the CPU a call is K eager steps. Across
+processes K is 1 and the step is eager, as the JAX loop keeps K = 1
+across processes; validation is eager everywhere.
 
 Data parallel (``mesh``, a ``parallel.Mesh`` of N processes): as in the JAX
 package (``nanoreviser_tpu/train/loop.py:135-145``), every process builds the
@@ -38,6 +46,8 @@ from .data import BatchIterator
 from .step import (
     default_class_weights,
     keras_adam,
+    load_optimizer_state,
+    make_multi_step,
     make_train_step,
     params_to_numpy,
     params_to_torch,
@@ -88,34 +98,72 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _host_tensors(batch: dict, pin: bool) -> dict:
+    """numpy batch (or stack) -> CPU tensors, targets as int64; in pinned
+    memory if ``pin``."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if k == "y":
+            t = t.long()
+        out[k] = t.pin_memory() if pin else t
+    return out
+
+
 def _uploader(device: torch.device):
     """numpy batch -> tensors on ``device``; from pinned memory without
     waiting for the copy on the card."""
     cuda = device.type == "cuda"
 
     def up(batch: dict) -> dict:
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if k == "y":
-                t = t.long()
-            out[k] = t.pin_memory().to(device, non_blocking=True) if cuda else t
-        return out
+        return {k: t.to(device, non_blocking=True)
+                for k, t in _host_tensors(batch, cuda).items()}
 
     return up
 
 
-def _prefetched(batches, pinned, depth: int = 2):
-    """Build (gather and pin) the next batches on a host thread while the
-    current one is enqueued."""
+def chunked(batches, k: int):
+    """(count, stack) per dispatch: every ``k`` consecutive batches of one
+    shape stacked on a new leading axis (count ``k``), and a batch left
+    over at a change of shape or at the end, alone (count 1). The JAX
+    loop's rule (``nanoreviser_tpu/train/loop.py:170-195``); there a batch
+    left over comes unstacked, here as a stack of one."""
+    buf: list = []
+
+    def flush():
+        if len(buf) == k:
+            yield k, {key: np.stack([b[key] for b in buf]) for key in buf[0]}
+        else:
+            for b in buf:
+                yield 1, {key: v[None] for key, v in b.items()}
+        buf.clear()
+
+    for b in batches:
+        if buf and b["y"].shape != buf[0]["y"].shape:
+            yield from flush()
+        buf.append(b)
+        if len(buf) == k:
+            yield from flush()
+    yield from flush()
+
+
+def _prefetched(items, prepare, depth: int = 2):
+    """``prepare(item)`` for each item, ``depth`` ahead of the caller: one
+    host thread draws the items (the batch gather and stacking happen in
+    that iterator) and prepares them (pinning, upload) while the caller
+    enqueues the previous ones."""
+    items = iter(items)
+    end = object()
+
+    def produce():
+        item = next(items, end)
+        return item if item is end else prepare(item)
+
     with cf.ThreadPoolExecutor(1) as pool:
-        queue = []
-        for b in batches:
-            queue.append(pool.submit(pinned, b))
-            if len(queue) > depth:
-                yield queue.pop(0).result()
-        while queue:
-            yield queue.pop(0).result()
+        queue = [pool.submit(produce) for _ in range(depth + 1)]
+        while (out := queue.pop(0).result()) is not end:
+            queue.append(pool.submit(produce))
+            yield out
 
 
 def train_model(
@@ -146,12 +194,11 @@ def train_model(
     ``device``: None means the card (raises without one); "cpu" trains on
     the CPU. ``mesh``: a ``parallel.Mesh``; training runs on its device,
     and over N processes ``batch_size`` is the global batch and must be a
-    multiple of N (the CLI rounds it up). ``steps_per_dispatch`` has no
-    effect (module docstring).
+    multiple of N (the CLI rounds it up). ``steps_per_dispatch``: K train
+    steps per dispatch on one process, 1 over N (module docstring).
     """
     from ..parallel import Mesh
 
-    del steps_per_dispatch
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.Mesh, not {type(mesh).__name__}")
     if (mesh is not None and device is not None
@@ -163,6 +210,8 @@ def train_model(
         raise ValueError(f"batch_size {batch_size} is not a multiple of the "
                          f"{mesh.world} processes")
     rank = mesh.rank if dp else 0
+    k_steps = 1 if dp else max(1, steps_per_dispatch)
+    graphed = dev.type == "cuda" and not dp
     cfg = ReviserConfig(window=window, n_classes=n_classes)
     params = init_params
     if params is None:
@@ -171,22 +220,23 @@ def train_model(
         params = dict(params)
         params["centers"] = np.zeros((n_classes, 16), np.float32)
     params = params_to_torch(params, dev)
-    optimizer = keras_adam(params, learning_rate)
+    optimizer = keras_adam(params, learning_rate, capturable=graphed)
     start_epoch = 0
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         ck = load_checkpoint(checkpoint_path)
         params = params_to_torch(ck["params"], dev)
-        optimizer = keras_adam(params, learning_rate)
-        optimizer.load_state_dict(ck["opt_state"])
+        optimizer = keras_adam(params, learning_rate, capturable=graphed)
+        load_optimizer_state(optimizer, ck["opt_state"])
         start_epoch = ck["epoch"]
         if verbose:
             print(f"[p:::] resumed from {checkpoint_path} at epoch {start_epoch}")
 
-    step = make_train_step(cfg, mesh=mesh)
     cw = torch.as_tensor(default_class_weights(n_classes), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if dp:
         from ..dist import distribute_batch, local_batch_slice
+
+        step = make_train_step(cfg, mesh=mesh)
 
         def upload(batch: dict):
             """(this process's slice on the device, the global batch's
@@ -194,11 +244,26 @@ def train_model(
             denom = max(float(np.sum(batch["weight"], dtype=np.float64)), 1.0)
             local = local_batch_slice(batch, mesh.rank, mesh.world)
             return distribute_batch(mesh, local), denom
+
+        def train_epoch():
+            """(loss [1], accuracy [1]) per step."""
+            for batch, denom in _prefetched(it.epoch(), upload):
+                metrics, _ = step(params, optimizer, batch, gen, denominator=denom)
+                yield metrics["loss"][None], metrics["accuracy"][None]
     else:
         up = _uploader(dev)
+        multi_step = make_multi_step(cfg, device=dev)
 
         def upload(batch: dict):
             return up(batch), None
+
+        def train_epoch():
+            """(loss [K], accuracy [K]) per dispatch of K steps."""
+            stacks = _prefetched(chunked(it.epoch(), k_steps),
+                                 lambda c: _host_tensors(c[1], pin=graphed))
+            for stack in stacks:
+                metrics = multi_step(params, optimizer, stack, gen)
+                yield metrics["loss"], metrics["accuracy"]
 
     @torch.no_grad()
     def eval_step(batch, denom=None):
@@ -223,12 +288,11 @@ def train_model(
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         losses, accs = [], []
-        for batch, denom in _prefetched(it.epoch(), upload):
-            metrics, _ = step(params, optimizer, batch, gen, denominator=denom)
-            losses.append(metrics["loss"])
-            accs.append(metrics["accuracy"])
-        ep_loss = float(torch.stack(losses).mean())
-        ep_acc = float(torch.stack(accs).mean())
+        for loss, acc in train_epoch():
+            losses.append(loss)
+            accs.append(acc)
+        ep_loss = float(torch.cat(losses).mean())
+        ep_acc = float(torch.cat(accs).mean())
         vl, va = [], []
         for batch, denom in _prefetched(it.validation(), upload):
             loss, acc = eval_step(batch, denom)

@@ -18,7 +18,11 @@ that the engine's device step never makes the host wait for the card.
 For training, one train step on the card against the CPU (the bars of
 tests/test_torch_train_step.py), a step and a batch upload that never make
 the host wait, and the aligner's torch DP on the card against the host
-library's (identical ops, j_start and score).
+library's (identical ops, j_start and score). K steps per dispatch
+(``make_multi_step``): replays of a 4-step and a 1-step CUDA graph against
+eager steps from the same params and generator seed, dropout on; a
+checkpoint of graphed steps resumed on the CPU and back on the card; a
+graphed call that never makes the host wait.
 """
 
 import numpy as np
@@ -319,6 +323,136 @@ def test_train_step_never_waits_for_the_device():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(metrics["loss"]))
+
+
+def _stacks(counts, b=128, t=13, seed=3):
+    """numpy stacks [c, b, t, ...] of batches with 7 pad rows each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for c in counts:
+        w = np.ones((c, b), np.float32)
+        w[:, -7:] = 0.0
+        out.append({"signal": rng.normal(0, 1, (c, b, t, 50)).astype(np.float32),
+                    "feats": rng.normal(0.5, 0.3, (c, b, t, 6)).astype(np.float32),
+                    "y": rng.integers(-1, 6, (c, b)), "weight": w})
+    return out
+
+
+@pytest.mark.filterwarnings("ignore:.*capturable=True")
+def test_graph_replays_match_eager_steps():
+    """One warm-up call (eager), two replays of a 4-step graph and two of a
+    1-step graph, against 14 eager steps with the same capturable Adam,
+    from the same params and generator seed, dropout on, TF32 off, at
+    T = 13, batch 128. Each step's loss within rtol 1e-5 and accuracy
+    within 1e-6; after each call every param within 2e-3 and >= 99% of
+    elements within 1e-5, the moving statistics within 1e-6 (the f32 bars
+    of test_train_step_on_card_matches_cpu). Prints whether every step was
+    bit-identical."""
+    from nanoreviser_torch.models import ReviserConfig
+    from nanoreviser_torch.train.loop import _host_tensors
+    from nanoreviser_torch.train.step import (
+        GRAPHS, is_trained, keras_adam, make_multi_step, make_train_step,
+        param_leaves, params_to_torch)
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p, _ = _train_case(6)
+    cfg = ReviserConfig(window=13, n_classes=6)
+    assert cfg.dropout_rate > 0
+    pe, pg = params_to_torch(p, dev), params_to_torch(p, dev)
+    oe, og = keras_adam(pe, 1e-3, capturable=True), keras_adam(pg, 1e-3, capturable=True)
+    ge = torch.Generator(device=dev).manual_seed(5)
+    gg = torch.Generator(device=dev).manual_seed(5)
+    step, multi = make_train_step(cfg), make_multi_step(cfg, device=dev)
+    captures, replays = GRAPHS.captures, GRAPHS.replays
+    identical = True
+    for stack in _stacks([4, 4, 4, 1, 1]):
+        got = multi(pg, og, _host_tensors(stack, pin=True), gg)
+        want = []
+        for i in range(len(stack["y"])):
+            batch = _host_tensors({k: v[i] for k, v in stack.items()}, pin=False)
+            want.append(step(pe, oe, {k: t.to(dev) for k, t in batch.items()}, ge)[0])
+        for m, rtol in (("loss", 1e-5), ("accuracy", 0.0)):
+            w = torch.stack([x[m] for x in want]).cpu().numpy()
+            g = got[m].cpu().numpy()
+            identical &= bool(np.array_equal(g, w))
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=0 if rtol else 1e-6)
+        n_el = n_close = 0
+        for (path, a), (_, b) in zip(param_leaves(pg), param_leaves(pe)):
+            a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+            identical &= bool(np.array_equal(a, b))
+            d = np.abs(a - b)
+            if not is_trained(path):
+                assert (d <= 1e-6 + 1e-6 * np.abs(b)).all(), path
+                continue
+            assert d.max() <= 2e-3, path
+            n_el += d.size
+            n_close += int((d <= 1e-5).sum())
+        assert n_close >= 0.99 * n_el
+    assert (GRAPHS.captures - captures, GRAPHS.replays - replays) == (2, 4)
+    print(f"graph replays bit-identical to eager steps: {identical}")
+
+
+def _loop_data(n_windows, t, seed=0):
+    rng = np.random.default_rng(seed)
+    n = n_windows + t
+    return (rng.normal(0.5, 0.3, (n, 6)).astype(np.float32),
+            rng.normal(0, 1, (n, 50)).astype(np.float32),
+            rng.integers(0, 6, (n_windows, 1)).astype(np.int32))
+
+
+def test_resume_graphed_checkpoint_on_cpu_and_back(tmp_path):
+    """300 windows at T = 13, batch 32: 9 steps an epoch (graphs of 4 and
+    1). Epoch 1 graphed on the card, epoch 2 resumed on the CPU, epoch 3
+    resumed on the card; Adam's step counter carries on across them."""
+    from nanoreviser_torch.train.loop import load_checkpoint, train_model
+    from nanoreviser_torch.train.step import GRAPHS
+
+    _card()
+    ck = str(tmp_path / "ck.pt")
+    kw = dict(n_classes=6, window=13, batch_size=32, validation_split=0.1, seed=2,
+              verbose=False, checkpoint_path=ck, steps_per_dispatch=4)
+    data = _loop_data(300, 13)
+    replays = GRAPHS.replays
+    for epochs, device, capturable in ((1, "cuda", True), (2, "cpu", False),
+                                       (3, "cuda", True)):
+        _, hist = train_model(*data, epochs=epochs, device=device,
+                              resume=epochs > 1, **kw)
+        assert len(hist["loss"]) == 1 and np.isfinite(hist["loss"]).all()
+        saved = load_checkpoint(ck)
+        assert saved["epoch"] == epochs
+        assert all(g["capturable"] == capturable
+                   for g in saved["opt_state"]["param_groups"])
+        assert all(float(s["step"]) == 9 * epochs
+                   for s in saved["opt_state"]["state"].values())
+    assert GRAPHS.replays - replays == 2 * 2    # per card epoch: one 4, one 1
+
+
+@pytest.mark.filterwarnings("ignore:.*capturable=True")
+def test_graphed_steps_never_wait_for_the_device():
+    """After the warm-up and the capture, a call (pinned stack up, replay,
+    metrics copied out) only queues work on the card."""
+    from nanoreviser_torch.models import ReviserConfig
+    from nanoreviser_torch.train.loop import _host_tensors
+    from nanoreviser_torch.train.step import keras_adam, make_multi_step, params_to_torch
+
+    dev = _card()
+    p, _ = _train_case(6, b=64)
+    params = params_to_torch(p, dev)
+    opt = keras_adam(params, 1e-3, capturable=True)
+    multi = make_multi_step(ReviserConfig(window=13, n_classes=6), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stack = _stacks([2], b=64)[0]
+    for _ in range(2):                            # warm-up, then the capture
+        multi(params, opt, _host_tensors(stack, pin=True), gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = multi(params, opt, _host_tensors(stack, pin=True), gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(metrics["loss"].cpu().numpy()).all()
 
 
 def test_torch_dp_on_card_matches_native():

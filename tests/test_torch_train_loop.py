@@ -2,8 +2,8 @@
 
 * ``load_training_corpus`` and ``BatchIterator`` give identical arrays and
   identical batches (the same permutation from the same seed).
-* Two epochs of ``train_model`` at T = 5, batch 32, on 100 windows, dropout
-  off on both sides (each package's ``ReviserConfig`` in ``train.loop``
+* Two epochs of ``train_model`` at T = 5, batch 32, on 100 windows, at one
+  step per dispatch, and at 4 (batch 16), dropout off on both sides (each package's ``ReviserConfig`` in ``train.loop``
   patched to ``dropout_rate=0``; nothing in the JAX package changes): the
   per-epoch ``loss`` and ``val_loss`` agree within 1e-3 relative.
 * Resume from the port's checkpoint, and ``.npz`` weights read across
@@ -95,15 +95,18 @@ def _init(n_classes=6, seed=7):
                                ReviserConfig(window=T, n_classes=n_classes))
 
 
-def test_train_model_follows_jax(monkeypatch):
+@pytest.mark.parametrize("k, batch", [(1, BATCH), (4, 16)])
+def test_train_model_follows_jax(monkeypatch, k, batch):
+    """At K steps per dispatch in both loops; at K = 4 the batch is 16, so
+    that an epoch of 6 steps holds a stack of 4 and 2 left over."""
     monkeypatch.setattr(port_loop, "ReviserConfig",
                         functools.partial(ReviserConfig, dropout_rate=0.0))
     monkeypatch.setattr(jax_loop, "ReviserConfig",
                         functools.partial(JaxConfig, dropout_rate=0.0))
     x, sig, y = _data()
-    kw = dict(n_classes=6, window=T, epochs=2, batch_size=BATCH,
+    kw = dict(n_classes=6, window=T, epochs=2, batch_size=batch,
               validation_split=0.1, seed=5, init_params=_init(), verbose=False,
-              steps_per_dispatch=1)
+              steps_per_dispatch=k)
     pp, ph = port_loop.train_model(x, sig, y, device="cpu", **kw)
     jp, jh = jax_loop.train_model(x, sig, y, **kw)
     assert list(ph) == list(jh)
@@ -113,7 +116,7 @@ def test_train_model_follows_jax(monkeypatch):
     np.testing.assert_allclose(ph["loss"], jh["loss"], rtol=1e-3)
     np.testing.assert_allclose(ph["val_loss"], jh["val_loss"], rtol=1e-3)
     assert ph["loss"][1] < ph["loss"][0]
-    # after six Adam steps the params still agree to a few steps' worth
+    # after 6 or 12 Adam steps the params still agree to a few steps' worth
     for k in ("dense1", "final_out"):
         assert np.abs(pp[k]["w"] - np.asarray(jp[k]["w"])).max() < 1e-3
 
