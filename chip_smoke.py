@@ -4,14 +4,17 @@
     python3 chip_smoke.py --gather-only   # phases device, build and gather
     python3 chip_smoke.py --cli-only      # device, build, gather, e2e's CLI runs
     python3 chip_smoke.py --train-only    # device, build, train
+    python3 chip_smoke.py --stack-only    # device, build, gather, stack, windows
 
 (``--dp-step`` runs one worker process of phase train's data-parallel
 step; the script starts those itself.)
 
 ``--gather-only`` times the window gather, ``--cli-only`` the CLI runs of
-phase e2e and ``--train-only`` the training path, of whatever package sits
+phase e2e, ``--train-only`` the training path and ``--stack-only`` the two
+stack kernels (with the sha256 of their outputs), of whatever package sits
 beside this file, so a copy of it in an older checkout times that checkout
-the same way.
+the same way (fields a package lacks, such as the stack's cluster size,
+are read with getattr and reported as for no clusters).
 
 Phases, each printing one JSON line:
 
@@ -20,6 +23,15 @@ Phases, each printing one JSON line:
 2. build   - compiles csrc/*.cu with nvcc (one process per source, in
              parallel) and the host library native/src/nanorev.cpp with
              g++ beside them, and reports what ptxas says.
+   probe   - the stack's weight stream alone (csrc/stream_probe.cu): at
+             one block per SM with stack_full's shared memory at T = 11,
+             each warp streams its 80 KB of a model's packed l3_f through
+             a ring of 8 KB, by per-lane cp.async, by one bulk copy per 1
+             or 2 KB fill, and by bulk copies multicast over clusters of 2,
+             4 and 8; every block's acknowledged words must equal the
+             source's; per variant the L2 read rate, each SM's fill rate in
+             bytes per SM clock (clocks.sm sampled beside the window) and
+             cudaOccupancyMaxActiveClusters.
 3. gather  - packs one full-tier batch (196,608 windows) from synthetic
              reads, decodes it on the card, and holds the window-gather
              kernel bit-exact against its plain version on the card and on
@@ -32,9 +44,12 @@ Phases, each printing one JSON line:
              chain (argmax agreement >= 0.995, max |dlogit| <= 0.05) and
              against the f32 plain chain with TF32 off (agreement >= 0.99
              over windows whose f32 top-2 margin exceeds 1e-3, atol 0.15);
-             times kernel and plain chain; reports the bound, the weight
-             bytes the kernel's schedule fetches from L2 and their rate,
-             and ptxas's registers and spills.
+             times kernel and plain chain (clocks.sm sampled beside the
+             window); reports the bound, the cluster size and the clusters
+             the card holds, the weight bytes the kernel's schedule takes
+             from L2 and those each SM receives, the bytes copied between
+             a cluster's shared memories, their rates, the sha256 of the
+             logits and probs, and ptxas's registers and spills.
 5. windows - the pre-gathered-window path on the same synthetic reads:
              windowed host prep (prep_read_numpy) of reads until there are
              >= 16,384 windows, then on the card device_preprocess_batch,
@@ -49,11 +64,12 @@ Phases, each printing one JSON line:
              the main path's (window_gather + stack_full) labels (agreement
              >= 0.98); merges each read and checks the sequences'
              plausibility; times kernel and plain version; reports the
-             weight bytes the kernel's schedule fetches from L2, their rate
-             and ptxas's registers and spills. Then one T = 13 launch (4-slot
-             weight rings) on 500 seeded random windows against the bf16
-             plain version (the same bars), and its time on as many windows
-             as the T = 11 run.
+             schedule's bytes and rates as phase stack does, the sha256 of
+             the logits and probs and ptxas's registers and spills. Then
+             one T = 13 launch (2-slot weight rings) on 500 seeded random
+             windows against the bf16 plain version (the same bars, and
+             its sha256), and its time on as many windows as the T = 11
+             run.
 6. host    - the host side on the card's host, on the 40 synthetic reads
              of the gather phase and on gzip copies of them (written from
              the same seed: chunked, shuffled, deflated): the usable CPUs,
@@ -223,6 +239,77 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+class SmClocks:
+    """nvidia-smi's clocks.sm (MHz) and power.draw (W), sampled every 50 ms
+    by a background nvidia-smi while the block runs; ``during(t0, t1)``
+    gives the samples taken in a window of time.time()."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+        def read():
+            for ln in self.proc.stdout:
+                try:
+                    mhz, watts = (float(x) for x in ln.split(",")[:2])
+                except ValueError:
+                    continue
+                self.samples.append((time.time(), mhz, watts))
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        t0 = time.time()
+        while not self.samples and time.time() - t0 < 15:
+            time.sleep(0.02)
+        return self
+
+    def during(self, t0: float, t1: float) -> dict:
+        """median clocks.sm and power.draw of the samples in [t0, t1] (the
+        nearest sample if none fell inside)"""
+        inside = [s for s in self.samples if t0 <= s[0] <= t1]
+        if not inside and self.samples:
+            inside = [min(self.samples, key=lambda s: abs(s[0] - (t0 + t1) / 2))]
+        if not inside:
+            return {"sm_mhz": None, "power_w": None, "samples": 0}
+        mhz = sorted(s[1] for s in inside)
+        watts = sorted(s[2] for s in inside)
+        return {"sm_mhz": mhz[len(mhz) // 2], "power_w": watts[len(watts) // 2],
+                "samples": len(inside)}
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(timeout=5)
+        return False
+
+
+def timed_window(fn, reps: int, clocks: "SmClocks") -> tuple[float, dict]:
+    """(ms per call of ``fn`` by CUDA events over ``reps`` calls after one
+    warm-up call, the clocks sampled beside that window)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    return start.elapsed_time(end) / reps, clocks.during(t0, t1)
+
+
 def make_weights(out_dir: str) -> tuple[str, str]:
     import torch
 
@@ -283,6 +370,73 @@ def phase_build() -> dict:
           "ptxas": ptxas,
           "zlib_loaded": zlib_available() if zlib_available else None})
     return logs
+
+
+# stack_full's dynamic shared memory at T = 11 (csrc/reviser_stack.cu: the
+# layer outputs, the staged rows, 8 warps x 8 slots of 1 KB and their
+# barriers), which leaves room for one block per SM
+STACK_SMEM_T11 = 11 * 16 * (264 + 136) * 2 + 32 * (72 + 24) * 2 + 32 * 6 * 4 + 8 * 8 * (1024 + 16)
+
+
+def phase_probe() -> dict:
+    """The weight-stream probe (csrc/stream_probe.cu): each variant's L2
+    read rate, each SM's fill rate in bytes per SM clock (clocks.sm sampled
+    beside the window) and the resident clusters at each size."""
+    import torch
+
+    from nanoreviser_torch.models import ReviserConfig, init_reviser_params
+    from nanoreviser_torch.models.fused import fold_inference_params
+    from nanoreviser_torch.models.reviser import randomize_inference_stats
+    from nanoreviser_torch.ops import reviser_kernel as rk
+    from nanoreviser_torch.ops import stream_probe as sp
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED)
+    p = randomize_inference_stats(
+        init_reviser_params(gen, ReviserConfig(window=WINDOW, n_classes=6)), gen)
+    packed = rk.pack_full_weights(rk.stack_models(
+        [rk.pack_stack_weights(fold_inference_params(p), WINDOW)]))
+    src = torch.tensor(packed["l3_f"][0], dtype=torch.bfloat16, device=dev).contiguous()
+    want = sp.expected_acks(src)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smem = STACK_SMEM_T11
+    variants = [(0, 1, 1024), (1, 1, 1024), (1, 1, 2048)] + [
+        (2, c, f) for c in (2, 4, 8) for f in (1024, 2048)]
+    rows = []
+    with SmClocks() as clocks:
+        for v, c, f in variants:
+            clusters = sp.active_clusters(c, f, smem)
+            n_ctas = sms if c == 1 else clusters * c
+            out = torch.zeros(n_ctas * 256, dtype=torch.int32, device=dev)
+            reps = 101                           # odd: the acks are checkable
+            ms0 = cuda_ms(lambda: sp.launch(v, c, f, n_ctas, smem, src, reps, out),
+                          reps=1)
+            reps = max(101, int(300.0 / ms0 * 101)) | 1     # ~0.3 s a launch
+            ms, clk = timed_window(
+                lambda: sp.launch(v, c, f, n_ctas, smem, src, reps, out), 1, clocks)
+            got = out.view(n_ctas, 256).cpu().numpy()
+            check(bool((got == want[None]).all()),
+                  f"probe variant {v} (C={c}, F={f}): acknowledged words differ")
+            per_cta = sp.source_bytes() * reps          # bytes each SM receives
+            sec = ms * 1e-3
+            rows.append({
+                "variant": v, "what": sp.VARIANTS[v], "cluster": c, "fill_bytes": f,
+                "active_clusters": clusters, "ctas": n_ctas, "reps": reps, "ms": ms,
+                **clk,
+                "l2_tb_per_s": n_ctas * per_cta / c / sec / 1e12,
+                "sm_fill_tb_per_s": n_ctas * per_cta / sec / 1e12,
+                "per_sm_bytes_per_clk": (per_cta / sec / (clk["sm_mhz"] * 1e6)
+                                         if clk["sm_mhz"] else None)})
+    base = rows[0]["per_sm_bytes_per_clk"]
+    ratio = {f"C={r['cluster']},F={r['fill_bytes']}":
+             r["per_sm_bytes_per_clk"] / base
+             for r in rows if r["variant"] == 2 and base and r["per_sm_bytes_per_clk"]}
+    info = {"phase": "probe", "sms": sms, "smem": smem,
+            "source_bytes": sp.source_bytes(), "rows": rows,
+            "multicast_fill_rate_over_cp_async": ratio,
+            "nvidia_smi": nvidia_smi_line()}
+    emit(info)
+    return info
 
 
 def phase_gather(tmp: str, weights):
@@ -356,6 +510,49 @@ def bound(ops: float, nbytes: float):
     operations over the bf16 peak."""
     tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def sha256_of(*tensors) -> str:
+    """sha256 of the tensors' bytes in turn (on the host)"""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def stack_schedule(rk, kernel: str, t: int, blocks_per_model: int,
+                   n_models: int, ms: float, clk: dict) -> dict:
+    """The stack kernel's launch by its schedule: the cluster size and the
+    clusters the card holds, the CTAs of the padded grid, the weight bytes
+    the L2 serves and the SMs receive, the bytes taken from peers' shared
+    memory, and their rates over ``ms`` (per SM in bytes per SM clock, at
+    the clocks.sm sampled beside the window). A package from before the
+    clusters (no stack_cluster_size) counts as cluster 1 on every SM."""
+    import torch
+
+    size_fn = getattr(rk, "stack_cluster_size", None)
+    c = size_fn() if size_fn else 1
+    fetch_fn = (rk.stack_full_fetch_bytes if kernel == "stack_full"
+                else rk.stack_windows_fetch_bytes)
+    per = fetch_fn(t, c) if size_fn else fetch_fn(t)
+    if not isinstance(per, dict):
+        per = {"l2": per, "sm": per, "peer": 0}
+    ctas = n_models * -(-blocks_per_model // c) * c
+    active = rk.stack_active_clusters(kernel, t) if size_fn else None
+    sms = (active * c if active
+           else torch.cuda.get_device_properties(0).multi_processor_count)
+    sec = ms * 1e-3
+    l2, sm, peer = (ctas * per[k] for k in ("l2", "sm", "peer"))
+    return {"cluster": c, "active_clusters": active, "sms_busy": sms,
+            "ctas": ctas, "l2_weight_bytes": l2, "sm_weight_bytes": sm,
+            "peer_bytes": peer, "l2_tb_per_s": l2 / sec / 1e12,
+            "per_sm_weight_bytes_per_clk": (sm / sms / sec / (clk["sm_mhz"] * 1e6)
+                                            if clk.get("sm_mhz") else None),
+            "per_sm_peer_bytes_per_clk": (peer / sms / sec / (clk["sm_mhz"] * 1e6)
+                                          if clk.get("sm_mhz") else None),
+            "clocks": clk}
 
 
 def _agreement(a, b, margin_ref=None, min_margin=0.0):
@@ -459,9 +656,10 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights, build_logs):
         "b2_vs_f32_plain": {"max_abs_dlogit": f32_err, "argmax_agreement": agree_f32,
                             "near_ties_margin_1e-3": near_ties}}
 
-    ms = cuda_ms(lambda: rk.stack_logits_full(
-        ws, sig, feats, t_len=t, w_valid=w_valid, n_windows=n_win,
-        want_probs=True), reps=5)
+    with SmClocks() as clocks:
+        ms, clk = timed_window(lambda: rk.stack_logits_full(
+            ws, sig, feats, t_len=t, w_valid=w_valid, n_windows=n_win,
+            want_probs=True), 10, clocks)
     plain_ms = cuda_ms(lambda: rk.stack_logits_plain(
         ws, sig, feats, t_len=t, w_valid=w_valid, n_windows=n_win,
         want_probs=True, bf16=True), reps=2)
@@ -474,16 +672,14 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights, build_logs):
     nbytes = (n_p * (sig.shape[1] * 2 + 6 * 4) + w_bytes
               + (logits.numel() + probs.numel()) * 4)
     bms, bby = bound(ops, nbytes)
-    blocks = -(-w_valid // 16)
-    fetch = 2 * blocks * rk.stack_full_fetch_bytes(t)
+    sched = stack_schedule(rk, "stack_full", t, -(-w_valid // 16), 2, ms, clk)
     emit({"phase": "stack", "windows": w_valid, "rows": n_p, **accuracy,
           "label_counts": classes,
           "launches_per_batch": {"window_gather": 1, "stack_full": 1},
           "stack_full_ms": ms, "stack_full_plain_ms": plain_ms,
           "stack_full_bound_ms": bms, "bound_by": bby, "flop": ops,
-          "bytes": nbytes, "blocks": blocks * 2,
-          "l2_weight_fetch_bytes": fetch,
-          "l2_weight_fetch_tb_per_s": fetch / (ms * 1e-3) / 1e12,
+          "bytes": nbytes, "schedule": sched,
+          "sha256_logits": sha256_of(logits), "sha256_probs": sha256_of(probs),
           "ptxas": ptxas_of(build_logs.get("reviser_stack", ""), "stack_full")})
     return [{"name": "stack_full", "route": "cuda",
              "source": "nanoreviser_torch/csrc/reviser_stack.cu",
@@ -532,15 +728,18 @@ def windows_t13(dev, n_time: int) -> dict:
     check(err <= 0.05, f"stack_windows T=13 vs bf16 plain: max |dlogit| {err}")
     check(min(agree) >= 0.995, f"stack_windows T=13 vs bf16 plain agreement {agree}")
     check(float(lg[0].std(0).min()) > 1e-3, "T=13 logits do not vary")
+    sha = {"sha256_logits": sha256_of(lg), "sha256_probs": sha256_of(pr)}
     feats, sig = inputs(n_time)
-    ms = cuda_ms(lambda: rk.stack_logits_multi(ws, feats, sig, t_len=t,
-                                               want_probs=True), reps=5)
-    fetch = 2 * -(-n_time // 16) * rk.stack_windows_fetch_bytes(t)
+    with SmClocks() as clocks:
+        ms, clk = timed_window(lambda: rk.stack_logits_multi(
+            ws, feats, sig, t_len=t, want_probs=True), 20, clocks)
     return {"windows_checked": 500, "max_abs_dlogit_vs_bf16_plain": err,
             "max_abs_dprob_vs_bf16_plain": float((pr - pp).abs().max()),
-            "agreement_vs_bf16_plain": agree, "ring_slots": rk.windows_ring_slots(t),
-            "windows_timed": n_time, "ms": ms, "l2_weight_fetch_bytes": fetch,
-            "l2_weight_fetch_tb_per_s": fetch / (ms * 1e-3) / 1e12}
+            "agreement_vs_bf16_plain": agree, **sha,
+            "ring_slots": rk.windows_ring_slots(t),
+            "windows_timed": n_time, "ms": ms,
+            "schedule": stack_schedule(rk, "stack_windows", t, -(-n_time // 16), 2,
+                                       ms, clk)}
 
 
 def phase_windows(weights, fast5_dir: str, names: list, build_logs):
@@ -658,8 +857,9 @@ def phase_windows(weights, fast5_dir: str, names: list, build_logs):
         lengths.append(len(seq))
     check(min(per_read) >= 0.98, f"windows vs main path labels per read {per_read}")
 
-    ms = cuda_ms(lambda: rk.stack_logits_multi(ws, featw, sig_outs, t_len=t,
-                                               want_probs=True), reps=5)
+    with SmClocks() as clocks:
+        ms, clk = timed_window(lambda: rk.stack_logits_multi(
+            ws, featw, sig_outs, t_len=t, want_probs=True), 20, clocks)
     plain_ms = cuda_ms(lambda: rk.stack_windows_plain(
         ws, featw, sig_outs, t_len=t, want_probs=True, bf16=True), reps=2)
     macs = rk.executed_mac_counts(t)["per_window_pregathered"]
@@ -669,8 +869,8 @@ def phase_windows(weights, fast5_dir: str, names: list, build_logs):
     nbytes = ((featw.numel() + sig_outs.numel()) * 4 + w_bytes
               + (logits.numel() + probs.numel()) * 4)
     bms, bby = bound(ops, nbytes)
-    blocks = n_models * -(-n_win // 16)
-    fetch = blocks * rk.stack_windows_fetch_bytes(t)
+    sched = stack_schedule(rk, "stack_windows", t, -(-n_win // 16), n_models, ms,
+                           clk)
     t13 = windows_t13(dev, n_win)
     emit({"phase": "windows", "reads": len(reads), "windows": n_win,
           "prep_seconds": round(prep_s, 3), "launches": launches,
@@ -681,9 +881,9 @@ def phase_windows(weights, fast5_dir: str, names: list, build_logs):
           "single_equals_model1": True,
           "labels_vs_main_path_per_read": per_read, "merged_lengths": lengths,
           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
-          "macs_per_window_per_model": macs, "blocks": blocks,
-          "ring_slots": rk.windows_ring_slots(t), "l2_weight_fetch_bytes": fetch,
-          "l2_weight_fetch_tb_per_s": fetch / (ms * 1e-3) / 1e12,
+          "macs_per_window_per_model": macs, "schedule": sched,
+          "sha256_logits": sha256_of(logits), "sha256_probs": sha256_of(probs),
+          "ring_slots": rk.windows_ring_slots(t),
           "ptxas": ptxas_of(build_logs.get("reviser_stack", ""), "stack_windows"),
           "t13": t13})
     return {"name": "stack_windows", "route": "cuda",
@@ -1981,10 +2181,13 @@ def main(argv: list) -> int:
     if argv[:1] == ["--dp-step"]:
         return dp_step_worker(argv[1:])
     only = argv[0] if argv else None
-    check(argv in ([], ["--gather-only"], ["--cli-only"], ["--train-only"]),
+    check(argv in ([], ["--gather-only"], ["--cli-only"], ["--train-only"],
+                   ["--stack-only"]),
           f"unknown arguments {argv}")
     info = phase_device()
     logs = phase_build()
+    if only is None:
+        phase_probe()
     with tempfile.TemporaryDirectory() as tmp:
         if only == "--train-only":
             phase_train(tmp)
@@ -1996,7 +2199,7 @@ def main(argv: list) -> int:
             del eng, dec, sig
             torch.cuda.empty_cache()
             phase_e2e(tmp, weights, fast5_dir, names, full=False)
-        if only is not None:
+        if only not in (None, "--stack-only"):
             print(nvidia_smi_line(), flush=True)
             return 0
         srows = phase_stack(eng, dec, sig, tier, w_valid, weights, logs)
@@ -2004,6 +2207,9 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         wrow = phase_windows(weights, fast5_dir, names, logs)
         torch.cuda.empty_cache()
+        if only == "--stack-only":
+            print(nvidia_smi_line(), flush=True)
+            return 0
         gz_dir = phase_host(tmp, fast5_dir, names)
         launches = phase_e2e(tmp, weights, fast5_dir, names, gz_dir=gz_dir)
         torch.cuda.empty_cache()

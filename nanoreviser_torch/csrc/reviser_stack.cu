@@ -28,13 +28,11 @@
 // What bounds stack_windows: operations, 6.21 M MACs per window and model
 // at T = 11 (executed_mac_counts(t)["per_window_pregathered"]) against
 // ~1.2 KB of input per window. What it meets first is, as for stack_full,
-// the L2: every step of every block streams its layer's packed weights
-// from L2 again, 12.33 MB per block and model at T = 11
-// (stack_windows_fetch_bytes in ops/reviser_kernel.py). An FMA design (one
-// thread per hidden unit, f32 on the CUDA cores, scalar bf16 weight loads)
-// reached ~1% of the bound; this one runs the products on the tensor cores
-// and the weights through stack_full's per-lane cp.async rings, so its
-// time is that of the weight stream.
+// the weight stream: every step streams its layer's packed weights again
+// (stack_windows_fetch_bytes in ops/reviser_kernel.py). Both kernels run
+// as clusters of kCluster = 2 CTAs that split layers 2-4 by direction
+// (the N-split, part c below), so each CTA streams half of those weights
+// per step for twice the windows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,6 +136,23 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 //    128) gives each warp 4 groups, layers 2 and 4 two, layer 1 one (2
 //    warps a direction). h is rounded to bf16 and stored row-major
 //    ([t][window][unit]), the A operand of the next product (ldmatrix).
+//    The N-split: the grid runs as clusters of kCluster = 2 CTAs along the
+//    window blocks (both on one model). Layer 1 runs as above in each CTA
+//    on its own 16 windows; layers 2-4 are split by direction: CTA d of the
+//    pair runs direction d for the pair's 32 windows, two m16 tiles that
+//    share every weight fragment, so it streams half of the layer's
+//    weights per step for twice the windows (a warp owns H/64 groups). Its
+//    own tile reads its own rows as above; the peer's tile reads the peer's
+//    x_t and s_t rows, copied each step from the peer's shared memory
+//    (distributed shared memory, ld through mapa) into P [16][kLdP] of its
+//    own, and h of the previous step from M [2][16][kLdM], where the CTA
+//    keeps the peer windows' h of its direction (by step parity). The h of
+//    the peer's windows is also stored into the peer's layer output (st
+//    through mapa), where the next layer and the heads find it. A cluster
+//    barrier ends each layer; within a layer the two directions need
+//    nothing of each other. The products of a (window, unit), their k
+//    order and every rounding are those of the unsplit layer, so the
+//    logits are bit-identical to it.
 // d. the per-t heads as three products over all 16T (t, window) rows at
 //    once: d1 = bf16(relu(l4 @ d1w + d1b)), d2 = bf16(relu(d1 @ d2w +
 //    d2b)), m = bf16(relu(d2 @ mow + mob)); then on the CUDA cores acc +=
@@ -148,17 +163,20 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 // What bounds stack_full: operations, 4.27e12 FLOP per full batch of
 // 191,232 windows by the JAX package's algorithmic count (4.3 ms at 989
 // TFLOP/s); its input and output are ~37 MB. What both kernels meet first
-// is the L2: the LSTM weights (1 MB of fragments a model) do not fit in
-// shared memory, so every step of every block streams its layer's weights
-// from L2 again, 12.8 MB per block and model, 305 GB per full batch at
-// T = 11 (stack_full_fetch_bytes in ops/reviser_kernel.py). So the weights
-// are packed once per engine in the order a warp consumes them
-// (pack_full_weights), and each lane copies its own 32 bytes of every 1 KB
-// tile into its own slice of a per-warp ring in shared memory with
-// cp.async, S - 1 = 3..7 tiles ahead and across the step barriers: no lane
-// waits on another for weights, and 24-56 KB a block are in flight. The
-// conv and head weights are read once per block (once per pair of m-tiles
-// for the heads) straight from L2.
+// is the weight stream: the LSTM weights (1 MB of fragments a model) do
+// not fit in shared memory, so every step streams its layer's weights from
+// L2 again: 12.8 MB per block and model unsplit, 305 GB per full batch at
+// T = 11, 6.8 MB and 162 GB with the N-split (stack_full_fetch_bytes in
+// ops/reviser_kernel.py). So the weights are packed once per engine in the
+// order a warp consumes them (pack_full_weights), and each lane copies its
+// own 32 bytes of every 1 KB tile into its own slice of a per-warp ring in
+// shared memory with cp.async, S - 1 = 1..7 tiles ahead and across the
+// step barriers: no lane waits on another for weights. (A probe of the
+// stream, stream_probe.cu, found these per-lane copies faster per SM than
+// TMA bulk copies, multicast or not, of 1-2 KB fills: so the split, and
+// not multicast, is what cuts the bytes per window.) The conv and head
+// weights are read once per block (once per pair of m-tiles for the
+// heads) straight from L2.
 //
 // Packed products (pack_full_weights): the B fragments of mma.m16n8k16.
 // For W [K, N], n8 tile n, k16 tile k, lane l = 4g + i:
@@ -172,20 +190,24 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 // Shared memory: layer outputs A [T][16][264] (layers 1, 3) and B
 // [T][16][136] (layers 2, 4), bf16, rows padded by 16 bytes so that the 8
 // row reads of an ldmatrix phase hit distinct banks; the staged rows; the
-// rings. stack_full: 213,248 B at T = 11 (8-slot rings), 222,464 B at
-// T = 13 (6-slot). stack_windows: 231,680 B at T = 11 (8-slot), 229,120 B
-// at T = 13 (4-slot).
+// peer's rows P and h M; the rings. stack_full: 230,400 B at T = 11
+// (8-slot rings), 231,424 B at T = 13 (5-slot). stack_windows: 232,448 B
+// at T = 11 (6-slot), 229,888 B at T = 13 (2-slot).
 
 constexpr int kThreads = 256;
+constexpr int kCluster = 2;              // CTAs per cluster (the N-split)
+static_assert(kCluster == 2, "the N-split gives each CTA of a pair one direction");
 constexpr int kRows = 32;                // staged base rows per block
 constexpr int kLdX = 72;                 // row strides (bf16 elements), each
 constexpr int kLdF = 24;                 // an odd number of 16-byte units
 constexpr int kLdZ = 408;
 constexpr int kLdL1 = 40, kLdL2 = 136, kLdL3 = 264, kLdL4 = 136;
 constexpr int kLdH1 = 136, kLdH2 = 40;
+constexpr int kLdP = 264, kLdM = 136;    // the peer's x|s rows, its h
 constexpr int kTile = 512;               // bf16 of one streamed weight tile
 constexpr int kConvNT = kConv / 8;       // n8 tiles of z1 and z2
 constexpr size_t kRingSlot = (size_t)(kThreads / 32) * kTile * sizeof(bf16);
+constexpr size_t kPeerBytes = (size_t)(kG * kLdP + 2 * kG * kLdM) * sizeof(bf16);
 
 // ---- PTX wrappers
 
@@ -234,6 +256,28 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of both CTAs: orders shared-memory accesses, local and
+// remote, across the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the generic address of the same shared-memory location in CTA `rank`
+template <typename T>
+__device__ __forceinline__ T* peer_ptr(T* p, uint32_t rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
 }
 
 // ---- end of the PTX wrappers
@@ -400,6 +444,157 @@ __device__ __forceinline__ void lstm_layer(const bf16* x, int x_ld, int x_step,
   cp_async_wait<0>();
 }
 
+// acc[i][g] += A_i @ (gate g's n8 tile) over K k16 tiles for the two m16
+// tiles i (a_lane[i]: this lane's ldmatrix address in the first k tile),
+// each weight fragment taken once from the stream; per accumulator the
+// same k order as gate_tiles.
+template <int K, int S>
+__device__ __forceinline__ void gate_tiles2(const bf16* a0_lane,
+                                            const bf16* a1_lane, bool zero_a,
+                                            WeightStream<S>& ws,
+                                            float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int kt = 0; kt < K; ++kt) {
+    uint32_t a0[4] = {0u, 0u, 0u, 0u}, a1[4] = {0u, 0u, 0u, 0u}, b[8];
+    if (!zero_a) {
+      ldsm_x4(a0, a0_lane + kt * 16);
+      ldsm_x4(a1, a1_lane + kt * 16);
+    }
+    ws.next(b);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      mma_bf16(acc[0][g], a0, b[2 * g], b[2 * g + 1]);
+      mma_bf16(acc[1][g], a1, b[2 * g], b[2 * g + 1]);
+    }
+  }
+}
+
+// One Bi-LSTM layer (hidden size H, layers 2-4) split over the cluster by
+// direction: this CTA runs direction `dir` for its own 16 windows (m tile
+// 0: x, s, h rows in its own buffers, as lstm_layer reads them) and its
+// peer's 16 (m tile 1). The peer's x and s rows of step t are copied from
+// x_peer / s_peer (the same buffers in the peer CTA) into P (x at columns
+// 0.., s after KX k16 tiles); the peer windows' h is kept in M [parity of
+// the step][16][kLdM]. h goes to out (own windows) and to out_peer and M
+// (the peer's). A warp owns H/64 groups of 8 units. Ends with a cluster
+// barrier, after which both CTAs' outputs hold both directions.
+template <int H, int KX, int KS, int KH, int S>
+__device__ __forceinline__ void lstm_layer_split(
+    const bf16* x, const bf16* x_peer, int x_ld, int x_step, const bf16* s,
+    const bf16* s_peer, int s_ld, int s_step, bf16* out, bf16* out_peer,
+    int out_ld, bf16* P, bf16* M, const bf16* wpack,
+    const float* __restrict__ bias, int T, bf16* ring, int dir) {
+  constexpr int G = H / 8, GPW = G / 8, TILES = KX + KS + KH;
+  constexpr int XU = KX * 2, SU = KS * 2;        // 16-byte units of a row
+  static_assert(GPW >= 1 && (KX + KS) * 16 <= kLdP - 8 && H <= kLdM - 8, "");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int u0 = warp * GPW;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  WeightStream<S> ws;
+  ws.start(wpack + (size_t)(dir * G + u0) * TILES * kTile + lane * 8,
+           ring + lane * 8, GPW * TILES, T);
+  const float* bd = bias + dir * 4 * H;
+  float c[GPW][2][4];
+#pragma unroll
+  for (int q = 0; q < GPW; ++q)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[q][i][e] = 0.0f;
+
+  for (int st = 0; st < T; ++st) {
+    const int t = dir ? T - 1 - st : st;
+    const int tp = st == 0 ? t : (dir ? t + 1 : t - 1);
+    for (int e = tid; e < kG * (XU + SU); e += kThreads) {
+      const int r = e / (XU + SU), q = e % (XU + SU);
+      const uint4* src =
+          q < XU ? reinterpret_cast<const uint4*>(
+                       x_peer + ((size_t)t * x_step + r) * x_ld) + q
+                 : reinterpret_cast<const uint4*>(
+                       s_peer + ((size_t)t * s_step + r) * s_ld) + (q - XU);
+      reinterpret_cast<uint4*>(P + r * kLdP)[q] = *src;
+    }
+    __syncthreads();
+    const bf16* xa = x + ((size_t)t * x_step + a_row) * x_ld + a_col;
+    const bf16* sa = s + ((size_t)t * s_step + a_row) * s_ld + a_col;
+    const bf16* ha = out + ((size_t)tp * kG + a_row) * out_ld + dir * H + a_col;
+    const bf16* pa = P + a_row * kLdP + a_col;
+    const bf16* ma = M + ((size_t)((st + 1) & 1) * kG + a_row) * kLdM + a_col;
+#pragma unroll
+    for (int q = 0; q < GPW; ++q) {
+      const int col = (u0 + q) * 8 + 2 * tq;   // this lane's first unit
+      float acc[2][4][4], part[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
+      gate_tiles2<KX>(xa, pa, false, ws, acc);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float2 bv = __ldg(reinterpret_cast<const float2*>(bd + g * H + col));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[i][g][0] += bv.x; acc[i][g][1] += bv.y;
+          acc[i][g][2] += bv.x; acc[i][g][3] += bv.y;
+        }
+      }
+      if constexpr (KS > 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[i][g][e] = 0.0f;
+        gate_tiles2<KS>(sa, pa + KX * 16, false, ws, part);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][g][e] += part[i][g][e];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][g][e] = 0.0f;
+      gate_tiles2<KH>(ha, ma, st == 0, ws, part);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // accumulator e: window gq (e < 2) or gq + 8, unit col + (e & 1)
+        float hv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ig = hard_sigmoid(acc[i][0][e] + part[i][0][e]);
+          const float fg = hard_sigmoid(acc[i][1][e] + part[i][1][e]);
+          const float gg = tanhf(acc[i][2][e] + part[i][2][e]);
+          const float og = hard_sigmoid(acc[i][3][e] + part[i][3][e]);
+          c[q][i][e] = fg * c[q][i][e] + ig * gg;
+          hv[e] = og * tanhf(c[q][i][e]);
+        }
+        const size_t o = ((size_t)t * kG + gq) * out_ld + dir * H + col;
+        if (i == 0) {
+          put_bf16x2(out + o, hv[0], hv[1]);
+          put_bf16x2(out + o + 8 * out_ld, hv[2], hv[3]);
+        } else {
+          bf16* m = M + ((size_t)(st & 1) * kG + gq) * kLdM + col;
+          put_bf16x2(m, hv[0], hv[1]);
+          put_bf16x2(m + 8 * kLdM, hv[2], hv[3]);
+          put_bf16x2(out_peer + o, hv[0], hv[1]);
+          put_bf16x2(out_peer + o + 8 * out_ld, hv[2], hv[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  cluster_sync();
+}
+
 // acc[i] = rows m0 + 16i .. +15 of A (shared, bf16 [.][lda]) @ the n8 tile
 // whose packed fragments start at wt ([NK][32] uint2), i < nm (1 or 2):
 // each B fragment, read once from L2, feeds both m tiles.
@@ -409,7 +604,7 @@ __device__ __forceinline__ void tile_mma(const bf16* A, int lda, int m0, int nm,
                                          float (&acc)[2][4]) {
   const int lane = threadIdx.x & 31;
   const bf16* a0 = A + (size_t)(m0 + (lane & 15)) * lda + (lane >> 4) * 8;
-#pragma unroll 5
+#pragma unroll
   for (int kt = 0; kt < NK; ++kt) {
     const uint2 b = __ldg(wt + kt * 32 + lane);
     uint32_t a[4];
@@ -506,30 +701,40 @@ CoreWeights core_weights_of(const void* const* p) {
 // (layer 3's signal input) at row (t * s_step + r) of SG [.][kLdX]. A
 // [T][16][kLdL3] and B [T][16][kLdL2] hold the layer outputs (F may lie in
 // A past [T][16][kLdL1], where layer 1 writes), then the heads' scratch.
+// P and M: the split layers' copies of the peer's rows. Every CTA of the
+// cluster runs all of it, whatever its windows (none may leave early).
 template <int S>
 __device__ __forceinline__ void stack_core(
     const CoreWeights& w, bf16* A, bf16* B, const bf16* F, int f_step,
-    const bf16* SG, int s_step, int T, bf16* ring, int m, int w0,
-    int w_valid, int n_windows, float* __restrict__ logits,
+    const bf16* SG, int s_step, int T, bf16* P, bf16* M, bf16* ring, int m,
+    int w0, int w_valid, int n_windows, float* __restrict__ logits,
     float* __restrict__ probs) {
   const int tid = threadIdx.x;
+  const uint32_t dir = cluster_rank(), peer = dir ^ 1;
+  bf16* Ap = peer_ptr(A, peer);
+  bf16* Bp = peer_ptr(B, peer);
+  const bf16* SGp = peer_ptr(SG, peer);
 
-  // c. the Bi-LSTM layers
+  // c. the Bi-LSTM layers: layer 1 on the own windows, 2-4 split
   lstm_layer<kH1, 1, 0, 1, S>(F, kLdF, f_step, SG, kLdX, s_step, A, kLdL1,
                               w.l1, w.b1, T, ring);
-  lstm_layer<kH2, 2, 0, 4, S>(A, kLdL1, kG, SG, kLdX, s_step, B, kLdL2,
-                              w.l2, w.b2, T, ring);
-  lstm_layer<kH3, 8, 4, 8, S>(B, kLdL2, kG, SG, kLdX, s_step, A, kLdL3,
-                              w.l3, w.b3, T, ring);
-  lstm_layer<kH4, 16, 0, 4, S>(A, kLdL3, kG, SG, kLdX, s_step, B, kLdL4,
-                               w.l4, w.b4, T, ring);
+  cluster_sync();
+  lstm_layer_split<kH2, 2, 0, 4, S>(A, Ap, kLdL1, kG, SG, SGp, kLdX, s_step,
+                                    B, Bp, kLdL2, P, M, w.l2, w.b2, T, ring,
+                                    dir);
+  lstm_layer_split<kH3, 8, 4, 8, S>(B, Bp, kLdL2, kG, SG, SGp, kLdX, s_step,
+                                    A, Ap, kLdL3, P, M, w.l3, w.b3, T, ring,
+                                    dir);
+  lstm_layer_split<kH4, 16, 0, 4, S>(A, Ap, kLdL3, kG, SG, SGp, kLdX, s_step,
+                                     B, Bp, kLdL4, P, M, w.l4, w.b4, T, ring,
+                                     dir);
 
   // d. the heads over the 16T (t, window) rows of layer 4's output
-  const int M = kG * T;
-  bf16* H1 = A;                                               // [M][kLdH1]
-  bf16* H2 = H1 + (size_t)M * kLdH1;                          // [M][kLdH2]
-  float* MO = reinterpret_cast<float*>(H2 + (size_t)M * kLdH2);  // [M][8]
-  float* FE = MO + M * 8;                                     // [16][kG]
+  const int R = kG * T;
+  bf16* H1 = A;                                               // [R][kLdH1]
+  bf16* H2 = H1 + (size_t)R * kLdH1;                          // [R][kLdH2]
+  float* MO = reinterpret_cast<float*>(H2 + (size_t)R * kLdH2);  // [R][8]
+  float* FE = MO + R * 8;                                     // [16][kG]
   dense_tiles<8>(B, kLdL4, T, w.d1, 128 / 8, ReluBf16{H1, kLdH1, w.d1b});
   __syncthreads();
   dense_tiles<8>(H1, kLdH1, T, w.d2, 32 / 8, ReluBf16{H2, kLdH2, w.d2b});
@@ -567,7 +772,9 @@ stack_full_kernel(FullPair wp, const bf16* __restrict__ sig,
   bf16* S64 = B + (size_t)T * kG * kLdL2;                   // [kRows][kLdX]
   bf16* FB = S64 + kRows * kLdX;                            // [kRows][kLdF]
   float* FS = reinterpret_cast<float*>(FB + kRows * kLdF);  // [kRows][6]
-  bf16* ring = reinterpret_cast<bf16*>(FS + kRows * 6) + (size_t)warp * S * kTile;
+  bf16* P = reinterpret_cast<bf16*>(FS + kRows * 6);        // [16][kLdP]
+  bf16* M = P + kG * kLdP;                                  // [2][16][kLdM]
+  bf16* ring = M + 2 * kG * kLdM + (size_t)warp * S * kTile;
   // the conv branch's scratch, in A (and B at small T) before layer 1
   bf16* X = A;                                              // [kRows][kLdX]
   bf16* Z1 = X + kRows * kLdX;                              // [kRows][kLdZ]
@@ -626,7 +833,7 @@ stack_full_kernel(FullPair wp, const bf16* __restrict__ sig,
   __syncthreads();
 
   // c. and d.: window w's step t reads base row w + t
-  stack_core<S>(w.core, A, B, FB, 1, S64, 1, T, ring, m, w0, w_valid,
+  stack_core<S>(w.core, A, B, FB, 1, S64, 1, T, P, M, ring, m, w0, w_valid,
                 n_windows, logits, probs);
 }
 
@@ -643,7 +850,9 @@ stack_windows_kernel(CorePair wp, const float* __restrict__ feats,
   bf16* A = reinterpret_cast<bf16*>(smem_u4);              // [T][16][kLdL3]
   bf16* B = A + (size_t)T * kG * kLdL3;                     // [T][16][kLdL2]
   bf16* SG = B + (size_t)T * kG * kLdL2;                    // [T][16][kLdX]
-  bf16* ring = SG + (size_t)T * kG * kLdX + (size_t)warp * S * kTile;
+  bf16* P = SG + (size_t)T * kG * kLdX;                     // [16][kLdP]
+  bf16* M = P + kG * kLdP;                                  // [2][16][kLdM]
+  bf16* ring = M + 2 * kG * kLdM + (size_t)warp * S * kTile;
   bf16* F = A + (size_t)T * kG * kLdL1;                     // [T][16][kLdF]
 
   // the conv outputs of model m (16 float4 per (window, t), contiguous
@@ -666,52 +875,134 @@ stack_windows_kernel(CorePair wp, const float* __restrict__ feats,
   __syncthreads();
 
   // c. and d.: window w's step t reads its own row t
-  stack_core<S>(wp.m[m], A, B, F, kG, SG, kG, T, ring, m, w0, n_win, n_win,
-                logits, probs);
+  stack_core<S>(wp.m[m], A, B, F, kG, SG, kG, T, P, M, ring, m, w0, n_win,
+                n_win, logits, probs);
 }
+
+// Launches `kernel` on grid (blocks, models), blocks rounded up to whole
+// clusters of kCluster CTAs along x. A refused launch (the cluster does not
+// fit, too much shared memory) returns its error: there is no launch
+// without clusters.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int blocks, int models,
+                    size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((blocks + kCluster - 1) / kCluster * kCluster, models);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of `kernel` at smem bytes (-1: an error)
+template <typename... Params>
+int active_clusters(void (*kernel)(Params...), size_t smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * 256);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
+  return n;
+}
+
+// Shared memory of each kernel at T without the rings, and the ring slots
+// per warp it takes: the most of the instantiated depths that fit (0: none)
+size_t full_fixed(int T) {
+  return (size_t)T * kG * (kLdL3 + kLdL2) * sizeof(bf16) +
+         (size_t)kRows * (kLdX + kLdF) * sizeof(bf16) +
+         (size_t)kRows * 6 * sizeof(float) + kPeerBytes;
+}
+
+size_t windows_fixed(int T) {
+  return (size_t)T * kG * (kLdL3 + kLdL2 + kLdX) * sizeof(bf16) + kPeerBytes;
+}
+
+int ring_slots(size_t fixed, const int (&depths)[3]) {
+  for (int s : depths)
+    if (s > 0 && fixed + s * kRingSlot <= kMaxSmem) return s;
+  return 0;
+}
+
+constexpr int kFullDepths[3] = {8, 5, 0};
+constexpr int kWindowsDepths[3] = {6, 4, 2};
 
 template <int S>
 int launch_full(const FullPair& wp, const bf16* sig, const float* feats,
                 int n_p, int T, int w_valid, int n_windows, float* logits,
-                float* probs, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      stack_full_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((w_valid + kG - 1) / kG, 2);
-  stack_full_kernel<S><<<grid, kThreads, smem, stream>>>(
-      wp, sig, feats, n_p, T, w_valid, n_windows, logits, probs);
-  return (int)cudaGetLastError();
+                float* probs, cudaStream_t stream) {
+  return launch_clusters(stack_full_kernel<S>, (w_valid + kG - 1) / kG, 2,
+                         full_fixed(T) + S * kRingSlot, stream, wp, sig,
+                         feats, n_p, T, w_valid, n_windows, logits, probs);
 }
 
 template <int S>
 int launch_windows(const CorePair& wp, int n_models, const float* feats,
                    const float* sig, int n_win, int T, float* logits,
                    float* probs, cudaStream_t stream) {
-  const size_t smem = (size_t)T * kG * (kLdL3 + kLdL2 + kLdX) * sizeof(bf16) +
-                      S * kRingSlot;
-  cudaError_t err = cudaFuncSetAttribute(
-      stack_windows_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n_win + kG - 1) / kG, n_models);
-  stack_windows_kernel<S><<<grid, kThreads, smem, stream>>>(
-      wp, feats, sig, n_win, T, logits, probs);
-  return (int)cudaGetLastError();
+  return launch_clusters(stack_windows_kernel<S>, (n_win + kG - 1) / kG,
+                         n_models, windows_fixed(T) + S * kRingSlot, stream,
+                         wp, feats, sig, n_win, T, logits, probs);
 }
 
 }  // namespace
 
+// CTAs per cluster of both kernels (the N-split's pair), fixed here; the
+// wrapper reads it for its byte counts and never chooses it.
+extern "C" int nr_stack_cluster_size() { return kCluster; }
+
 // The weight-ring slots per warp that nr_stack_windows takes at T: the most
-// of 8, 6 or 4 that fit beside the layer outputs and the staged conv
-// outputs; 0 if none fits (T > 13). The wrapper asks this, so the layout
-// is decided here only.
+// of 6, 4 or 2 that fit beside the layer outputs, the staged conv outputs
+// and the peer's rows; 0 if none fits (T > 13). The wrapper asks this, so
+// the layout is decided here only.
 extern "C" int nr_stack_windows_ring_slots(int T) {
-  if (T < 1) return 0;
-  const size_t fixed = (size_t)T * kG * (kLdL3 + kLdL2 + kLdX) * sizeof(bf16);
-  for (int s = 8; s >= 4; s -= 2)
-    if (fixed + s * kRingSlot <= kMaxSmem) return s;
-  return 0;
+  return T < 1 ? 0 : ring_slots(windows_fixed(T), kWindowsDepths);
+}
+
+// The same for nr_stack_full: 8 or 5 (T <= 13), 0 past that.
+extern "C" int nr_stack_full_ring_slots(int T) {
+  return T < 5 || kG + T - 1 > kRows ? 0 : ring_slots(full_fixed(T), kFullDepths);
+}
+
+// cudaOccupancyMaxActiveClusters of stack_full (kernel 0) or stack_windows
+// (kernel 1) at T: how many clusters the card holds at once (-1 if T has
+// no ring or the query fails).
+extern "C" int nr_stack_active_clusters(int kernel, int T) {
+  if (kernel == 0) {
+    switch (nr_stack_full_ring_slots(T)) {
+      case 8: return active_clusters(stack_full_kernel<8>, full_fixed(T) + 8 * kRingSlot);
+      case 5: return active_clusters(stack_full_kernel<5>, full_fixed(T) + 5 * kRingSlot);
+      default: return -1;
+    }
+  }
+  switch (nr_stack_windows_ring_slots(T)) {
+    case 6: return active_clusters(stack_windows_kernel<6>, windows_fixed(T) + 6 * kRingSlot);
+    case 4: return active_clusters(stack_windows_kernel<4>, windows_fixed(T) + 4 * kRingSlot);
+    case 2: return active_clusters(stack_windows_kernel<2>, windows_fixed(T) + 2 * kRingSlot);
+    default: return -1;
+  }
 }
 
 // w: the CORE_ORDER pointers (ops/reviser_kernel.py) of model 0, then (with
@@ -728,14 +1019,14 @@ extern "C" int nr_stack_windows(const void* const* w, int n_models,
   for (int m = 0; m < n_models; ++m)
     wp.m[m] = core_weights_of(w + m * kCoreArgs);
   switch (nr_stack_windows_ring_slots(T)) {
-    case 8:
-      return launch_windows<8>(wp, n_models, feats, sig, n_win, T, logits,
-                               probs, stream);
     case 6:
       return launch_windows<6>(wp, n_models, feats, sig, n_win, T, logits,
                                probs, stream);
     case 4:
       return launch_windows<4>(wp, n_models, feats, sig, n_win, T, logits,
+                               probs, stream);
+    case 2:
+      return launch_windows<2>(wp, n_models, feats, sig, n_win, T, logits,
                                probs, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -763,14 +1054,14 @@ extern "C" int nr_stack_full(const void* const* w, const bf16* sig,
         (const float*)p[3], (const uint2*)p[4], (const uint2*)p[5],
         (const float*)p[6], core_weights_of(p + kConvArgs)};
   }
-  const size_t fixed = (size_t)T * kG * (kLdL3 + kLdL2) * sizeof(bf16) +
-                       (size_t)kRows * (kLdX + kLdF) * sizeof(bf16) +
-                       (size_t)kRows * 6 * sizeof(float);
-  if (fixed + 8 * kRingSlot <= kMaxSmem)
-    return launch_full<8>(wp, sig, feats, n_p, T, w_valid, n_windows, logits,
-                          probs, fixed + 8 * kRingSlot, stream);
-  if (fixed + 6 * kRingSlot <= kMaxSmem)
-    return launch_full<6>(wp, sig, feats, n_p, T, w_valid, n_windows, logits,
-                          probs, fixed + 6 * kRingSlot, stream);
-  return (int)cudaErrorInvalidValue;
+  switch (nr_stack_full_ring_slots(T)) {
+    case 8:
+      return launch_full<8>(wp, sig, feats, n_p, T, w_valid, n_windows,
+                            logits, probs, stream);
+    case 5:
+      return launch_full<5>(wp, sig, feats, n_p, T, w_valid, n_windows,
+                            logits, probs, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

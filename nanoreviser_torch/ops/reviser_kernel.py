@@ -20,7 +20,10 @@ window w covers rows w..w+T-1. The function, in two plain halves:
 The kernel runs the conv branch per base row into shared memory and the
 two projections per (window, t) from there, on the tensor cores; its
 products read the weights in mma fragment order (``pack_full_weights``,
-made once per engine by ``kernel_weights``).
+made once per engine by ``kernel_weights``). Both kernels launch as
+clusters of ``stack_cluster_size()`` = 2 blocks that split Bi-LSTM layers
+2-4 by direction (each block streams half of their weights for both
+blocks' windows); the logits are bit-identical to the unsplit schedule's.
 
 The pre-gathered-window entry ``stack_logits_multi`` replaces the TPU kernel
 ``_kernel`` (``nanoreviser_tpu/ops/reviser_kernel.py:251``, entries
@@ -554,29 +557,68 @@ def stack_logits_full(ws: dict, sig: torch.Tensor, feats: torch.Tensor, *,
     return logits, probs
 
 
-def stack_full_fetch_bytes(t_len: int) -> int:
-    """Weight bytes one ``stack_full`` block fetches from L2 for one model,
-    by the kernel's schedule: the conv products once, then the stack core's
-    (``stack_windows_fetch_bytes``)."""
+def stack_full_fetch_bytes(t_len: int, cluster: int = 1) -> dict:
+    """Weight bytes of one ``stack_full`` block and model by the kernel's
+    schedule with clusters of ``cluster`` CTAs: the conv products and
+    biases once, then the stack core's (``stack_windows_fetch_bytes``)."""
     nbytes = lambda k: 2 * math.prod(FULL_SHAPES[k])
     conv = (sum(nbytes(k) for k in ("cw1_f", "cw2_f", "cc_f", "ce_f"))
             + 4 * (400 + 400 + 64))
-    return conv + stack_windows_fetch_bytes(t_len)
+    core = stack_windows_fetch_bytes(t_len, cluster)
+    return {"l2": core["l2"] + conv, "sm": core["sm"] + conv, "peer": core["peer"]}
 
 
-def stack_windows_fetch_bytes(t_len: int) -> int:
-    """Weight bytes the stack core of one block fetches from L2 for one
-    model (all of a ``stack_windows`` block's): every step streams its
-    layer's packed gate products and reads their biases again; each head
-    product once per pair of m16 tiles, ceil(T/2) times; the feature and
-    final weights once."""
+def stack_windows_fetch_bytes(t_len: int, cluster: int = 1) -> dict:
+    """Bytes the stack core of one block and model moves by the kernels'
+    schedule with clusters of ``cluster`` CTAs (the N-split; 1: none):
+    ``l2``, the bytes the L2 serves it; ``sm``, the bytes its SM receives
+    from L2 (equal: nothing is multicast); ``peer``, the bytes it takes from
+    its peers' shared memory. Every step streams its layer's packed gate
+    products and reads their biases: layer 1 whole, layers 2-4 split, each
+    block streaming 1/cluster of their gate columns (and biases). The heads'
+    products are read once per pair of m16 tiles, ceil(T/2) times; the
+    feature and final weights once. Per step of layers 2-4 a block copies
+    the x (and s) rows of its cluster - 1 peers' 16 windows, and the peers
+    store the (cluster - 1)/cluster of its h that they compute."""
+    if cluster < 1:
+        raise ValueError(f"cluster must be >= 1, got {cluster}")
     nbytes = lambda k: 2 * math.prod(FULL_SHAPES[k])
-    lstm = (sum(nbytes(k) for k in ("l1_f", "l2_f", "l3_f", "l4_f"))
-            + 4 * 2 * 4 * (H1 + H2 + H3 + H4))
+    bias = lambda h: 4 * 2 * 4 * h
+    split = sum(nbytes(k) for k in ("l2_f", "l3_f", "l4_f")) + bias(H2 + H3 + H4)
+    if split % cluster:
+        raise ValueError(f"layers 2-4 do not split over {cluster} CTAs")
+    lstm = nbytes("l1_f") + bias(H1) + split // cluster
     heads = ((nbytes("d1_f") + nbytes("d2_f") + nbytes("mo_f")) * ((t_len + 1) // 2)
              + 4 * (128 + 32 + NB_MAX) + 2 * t_len * NB_MAX * 16 + 4 * 16
              + 2 * 16 * NB_MAX + 4 * NB_MAX)
-    return t_len * lstm + heads
+    weights = t_len * lstm + heads
+    rows = 16 * (2 * H1 + (2 * H2 + 64) + 2 * H3)       # x|s of layers 2-4
+    h_in = 16 * 2 * (H2 + H3 + H4) * (cluster - 1) // cluster
+    peer = t_len * 2 * ((cluster - 1) * rows + h_in)
+    return {"l2": weights, "sm": weights, "peer": peer}
+
+
+def _stack_lib():
+    return build.load(STACK_FULL.source)
+
+
+def stack_cluster_size() -> int:
+    """CTAs per cluster of both stack kernels, as their library fixes it
+    (``nr_stack_cluster_size``); the wrappers never choose it. Loads, and
+    if needed builds, the library."""
+    return int(_stack_lib().nr_stack_cluster_size())
+
+
+def stack_active_clusters(kernel: str, t_len: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of ``stack_full`` or
+    ``stack_windows`` at T (needs a card): the clusters the card holds at
+    once."""
+    which = {"stack_full": 0, "stack_windows": 1}[kernel]
+    n = int(_stack_lib().nr_stack_active_clusters(build.c_int(which),
+                                                  build.c_int(t_len)))
+    if n < 0:
+        raise build.KernelLaunchError(f"{kernel}: no occupancy at T={t_len}")
+    return n
 
 
 # --------------------------------------------- the pre-gathered-window entry
@@ -587,8 +629,7 @@ def windows_ring_slots(t_len: int) -> int:
     kernel's library decides them (``nr_stack_windows_ring_slots``, beside
     the shared-memory layout it depends on); 0 where no ring fits. Loads,
     and if needed builds, the library."""
-    lib = build.load(STACK_WINDOWS.source)
-    return int(lib.nr_stack_windows_ring_slots(build.c_int(t_len)))
+    return int(_stack_lib().nr_stack_windows_ring_slots(build.c_int(t_len)))
 
 
 def stack_logits_multi(ws: dict, feats: torch.Tensor, sig_outs: torch.Tensor,

@@ -11,7 +11,10 @@ vlen 0, 50..63 and masked values, rows_valid not a multiple of 4, lanes
 stack_full over a w_valid that ends inside a block of 16 windows, with the
 windows past it left at zero, and w_valid = 0; the pre-gathered-window
 kernel from kernel_weights, also for one model, equal to model 1 of two,
-and for batches that end inside a block of 16 windows), and the engine's
+and for batches that end inside a block of 16 windows; both kernels, which
+run as clusters of 2 blocks, at batches ending inside a block or a cluster,
+T = 11 and 13, bit-identical across two launches, stack_full on a full
+tier, and a launch the library refuses raising), and the engine's
 labels on the card against the
 CPU engine's f32 labels (agreement >= 0.98), at small sizes; and they check
 that the engine's device step never makes the host wait for the card.
@@ -160,7 +163,7 @@ def test_windows_kernel_single_model_and_ragged_batches():
         assert torch.equal(one, both[0])
         assert float((both[:, :, :5] - plain[:, :, :5]).abs().max()) <= 0.05
     # the kernel reads the packed weights only, and has no ring for T > 13
-    assert [rk.windows_ring_slots(t) for t in (11, 13, 14)] == [8, 4, 0]
+    assert [rk.windows_ring_slots(t) for t in (11, 13, 14)] == [6, 2, 0]
     with pytest.raises(ValueError, match="kernel_weights"):
         rk.stack_logits_multi(rk.weights_to_device(_weights(8), dev), feats, sig,
                               t_len=11)
@@ -168,6 +171,99 @@ def test_windows_kernel_single_model_and_ragged_batches():
     with pytest.raises(ValueError, match="T=14"):
         rk.stack_logits_multi(rk.kernel_weights(_weights(8, 14), dev), feats, sig,
                               t_len=14)
+
+
+def _rows_inputs(dev, n, t, seed):
+    rng = np.random.default_rng(seed)
+    sig = torch.tensor(rng.normal(0, 1, (n, 64)), dtype=torch.float32)
+    sig[:, 50:] = 0
+    feats = torch.tensor(rng.normal(0.5, 0.3, (n, 6)), dtype=torch.float32, device=dev)
+    return sig.to(torch.bfloat16).to(dev), feats
+
+
+def _within_bars(lg, lp, pr, pp, n_classes=(6, 5)):
+    for m, nc in enumerate(n_classes[: lg.shape[0]]):
+        assert float((lg[m, :, :nc] - lp[m, :, :nc]).abs().max()) <= 0.05
+    assert float((pr - pp).abs().max()) <= 0.05
+
+
+@pytest.mark.parametrize("t", [11, 13])
+def test_stack_full_clusters_at_ragged_tails(t):
+    """The grid runs as clusters of stack_cluster_size() blocks of 16
+    windows; a w_valid that ends inside a block or a cluster leaves CTAs
+    with few or no valid windows, which must still take part and write
+    nothing. Each launch is within the bf16 bars and a second launch gives
+    the same bits."""
+    dev = _card()
+    c = rk.stack_cluster_size()
+    assert c == 2 and rk.stack_active_clusters("stack_full", t) * c >= 120
+    ws = rk.kernel_weights(_weights(11, t), dev)
+    n_win = 16 * c + 40
+    sig, feats = _rows_inputs(dev, n_win + t, t, 3)
+    for w_valid in (1, 15, 16, 17, 16 * c - 1, 16 * c + 1):
+        lg, pr = rk.stack_logits_full(ws, sig, feats, t_len=t, w_valid=w_valid,
+                                      n_windows=n_win, want_probs=True)
+        again = rk.stack_logits_full(ws, sig, feats, t_len=t, w_valid=w_valid,
+                                     n_windows=n_win, want_probs=True)
+        lp, pp = rk.stack_logits_plain(ws, sig, feats, t_len=t, w_valid=w_valid,
+                                       n_windows=n_win, want_probs=True, bf16=True)
+        torch.cuda.synchronize()
+        assert torch.equal(lg, again[0]) and torch.equal(pr, again[1])
+        _within_bars(lg[:, :w_valid], lp[:, :w_valid], pr[:, :w_valid], pp[:, :w_valid])
+        assert not lg[:, w_valid:].any() and not pr[:, w_valid:].any()
+
+
+@pytest.mark.parametrize("t", [11, 13])
+def test_windows_clusters_at_ragged_tails(t):
+    """stack_windows at batches ending inside a block or a cluster, for one
+    model and two: within the bf16 bars, two launches bit-identical, the
+    one-model launch equal to model 1 of two."""
+    dev = _card()
+    c = rk.stack_cluster_size()
+    assert rk.stack_active_clusters("stack_windows", t) * c >= 120
+    ws = rk.kernel_weights(_weights(12, t), dev)
+    for n in (1, 15, 16, 17, 16 * c - 1, 16 * c + 1):
+        feats, sig = _window_inputs(dev, n, 100 + n, t)
+        lg, pr = rk.stack_logits_multi(ws, feats, sig, t_len=t, want_probs=True)
+        again = rk.stack_logits_multi(ws, feats, sig, t_len=t, want_probs=True)
+        one = rk.stack_logits_single({k: v[0] for k, v in ws.items()}, feats,
+                                     sig[0], t_len=t)
+        lp, pp = rk.stack_windows_plain(ws, feats, sig, t_len=t, want_probs=True,
+                                        bf16=True)
+        torch.cuda.synchronize()
+        assert torch.equal(lg, again[0]) and torch.equal(pr, again[1])
+        assert torch.equal(one, lg[0])
+        _within_bars(lg, lp, pr, pp)
+
+
+def test_stack_full_full_tier_and_refused_launch():
+    """stack_full on a full-tier batch (196,608 windows) within the bars,
+    bit-identical across two launches; a launch the library refuses (T = 14:
+    no ring fits beside the layer outputs) raises, with no launch counted."""
+    dev = _card()
+    t, n_win = 11, 196608
+    ws = rk.kernel_weights(_weights(13, t), dev)
+    sig, feats = _rows_inputs(dev, n_win + t, t, 4)
+    lg, pr = rk.stack_logits_full(ws, sig, feats, t_len=t, w_valid=n_win,
+                                  n_windows=n_win, want_probs=True)
+    again = rk.stack_logits_full(ws, sig, feats, t_len=t, w_valid=n_win,
+                                 n_windows=n_win, want_probs=True)
+    lp, pp = rk.stack_logits_plain(ws, sig, feats, t_len=t, w_valid=n_win,
+                                   n_windows=n_win, want_probs=True, bf16=True)
+    torch.cuda.synchronize()
+    assert torch.equal(lg, again[0]) and torch.equal(pr, again[1])
+    _within_bars(lg, lp, pr, pp)
+    for m in range(2):
+        agree = (lg[m].argmax(-1) == lp[m].argmax(-1)).float().mean()
+        assert float(agree) >= 0.995
+    del lp, pp
+    ws14 = rk.kernel_weights(_weights(13, 14), dev)
+    sig, feats = _rows_inputs(dev, 100 + 14, 14, 5)
+    before = rk.STACK_FULL.launches
+    with pytest.raises(rk.build.KernelLaunchError, match="stack_full"):
+        rk.stack_logits_full(ws14, sig, feats, t_len=14, w_valid=100,
+                             n_windows=100, want_probs=True)
+    assert rk.STACK_FULL.launches == before
 
 
 def _engine_inputs(tmp_path):

@@ -194,3 +194,87 @@ def test_kernel_weights_leave_the_cpu_path_plain():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not got[0][:, w_valid:].any()
     assert rk.STACK_FULL.replaces == "nanoreviser_tpu/ops/reviser_kernel.py:283"
+
+
+_KW = {}
+
+
+def _kernel_weights(t):
+    if t not in _KW:
+        _KW[t] = rk.kernel_weights(_stacked(t, seed=9), "cpu")
+    return _KW[t]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("t", [11, 13])
+def test_fetch_bytes_by_cluster_from_packed_shapes(t, cluster):
+    """The bytes model of the kernels' schedule, recounted from the packed
+    tensors a block reads: per step layer 1's gate products and biases
+    whole and 1/cluster of layers 2-4's (the N-split), the heads' products
+    once per pair of m16 tiles, the feature and final weights once, the
+    conv products and biases once (stack_full); the L2 serves what the SM
+    receives (no multicast); per step of layers 2-4 the x|s rows of the
+    cluster - 1 peer blocks and the share of h the peers compute."""
+    ws = _kernel_weights(t)
+    b = lambda *keys: sum(ws[k][0].numel() * ws[k][0].element_size() for k in keys)
+    split = b("l2_f", "l3_f", "l4_f", "b2", "b3", "b4")
+    core = (t * (b("l1_f", "b1") + split // cluster)
+            + b("d1_f", "d2_f", "mo_f") * -(-t // 2)
+            + b("d1b", "d2b", "mob", "fw", "fb", "fow", "fob"))
+    conv = b("cw1_f", "cw2_f", "cc_f", "ce_f", "cb1", "cb2", "cbias")
+    # bf16 rows a block copies from each peer per step: layer 1's output
+    # (layer 2's x), layer 2's and the conv output (layer 3's x|s), layer 3's
+    rows = 2 * 16 * (32 + (128 + 64) + 256)
+    h_in = 2 * 16 * 2 * (64 + 128 + 64) * (cluster - 1) // cluster
+    peer = t * ((cluster - 1) * rows + h_in)
+    got_w = rk.stack_windows_fetch_bytes(t, cluster)
+    got_f = rk.stack_full_fetch_bytes(t, cluster)
+    assert got_w == {"l2": core, "sm": core, "peer": peer}
+    assert got_f == {"l2": core + conv, "sm": core + conv, "peer": peer}
+    if t == 11 and cluster == 1:          # the unsplit schedule's counts
+        assert (got_f["l2"], got_w["l2"]) == (12766576, 12332528)
+    # a full batch (11,952 blocks a model) at 305 GB unsplit: about 305 / C
+    # of it is the split layers' share
+    batch = 2 * 11952 * got_f["l2"] / 1e9
+    unsplit = 2 * 11952 * rk.stack_full_fetch_bytes(t)["l2"] / 1e9
+    assert unsplit / cluster <= batch < unsplit / cluster + 2 * 11952 * 0.9e6 / 1e9
+
+
+def test_stack_profile_instruments_the_kernel_source():
+    """The card-side phase profile (ops/stack_profile.py) patches a copy of
+    csrc/reviser_stack.cu at anchors that must each occur once: a kernel
+    change that moves one fails here, on the CPU, not on the card."""
+    from nanoreviser_torch.ops import build, stack_profile
+
+    src = (build.CSRC / "reviser_stack.cu").read_text()
+    out = stack_profile.instrumented_source(src)
+    for k in range(7):
+        assert out.count(f"PROF_MARK({k});") == 1, k
+    assert out.count("PROF_MARK(10);") == 1
+    assert out.count("PROF_ADD(8,") == 1 and out.count("PROF_ADD(9,") == 1
+    assert "#ifdef NO_MMA" in out and "#ifdef NO_STREAM" in out
+    # nothing of the kernel itself is removed
+    assert all(ln in out for ln in src.splitlines())
+    with pytest.raises(ValueError, match="anchor"):
+        stack_profile.instrumented_source(src.replace("PROF", "").replace(
+            "  lstm_layer<kH1, 1, 0, 1, S>", "  lstm_layer<kH1, 1, 0, 1,  S>"))
+
+
+def test_stream_probe_acknowledged_words():
+    """The probe's check (ops/stream_probe.py): thread 32 w + l of a block
+    holds the XOR of the 8 words lane l reads of each of warp w's 80 tiles
+    (16 bytes of each half), recounted here word by word."""
+    from nanoreviser_torch.ops import stream_probe
+
+    rng = np.random.default_rng(3)
+    src = torch.tensor(rng.integers(-2**15, 2**15, 8 * 80 * 512), dtype=torch.int16)
+    got = stream_probe.expected_acks(src.view(torch.bfloat16))
+    words = src.view(torch.int32).numpy()
+    for w, lane in ((0, 0), (3, 5), (7, 31)):
+        want = 0
+        for tile in range(80):
+            base = (w * 80 + tile) * 256
+            for half in range(2):
+                for k in range(4):
+                    want ^= int(words[base + half * 128 + lane * 4 + k]) & 0xFFFFFFFF
+        assert int(got[w * 32 + lane]) & 0xFFFFFFFF == want

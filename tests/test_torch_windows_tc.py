@@ -24,7 +24,15 @@ card:
   ``d2_f``, ``mo_f`` -- is within max |dlogit| 0.05 of
   ``stack_windows_plain(bf16=True)`` at M = 1 and 2, T = 11 and 13, n = 5
   and 33 (the bar the kernel is held to on the card; the two differ only
-  in summation order and the bf16 rounding of h that follows from it).
+  in summation order and the bf16 rounding of h that follows from it);
+* in that emulation the N-split -- blocks in clusters of 2 (the grid
+  padded to whole clusters), layer 1 per block, layers 2-4 split by
+  direction, the peer's x and s rows copied each step into P, its h kept in
+  M by step parity, h stored into both blocks' outputs -- gives logits and
+  probs bit-identical to the unsplit schedule (each k16 product is taken
+  exactly, so a row's result depends on its own operands only). Against
+  the bf16 plain version the emulation cannot be bit-identical: torch sums
+  a product's K terms in another order than the k16 tiles do.
 """
 
 import numpy as np
@@ -41,7 +49,9 @@ KG, TILE = 16, 512
 LD_X, LD_F = 72, 24
 LD_L1, LD_L2, LD_L3, LD_L4 = 40, 136, 264, 136
 LD_H1, LD_H2 = 136, 40
+LD_P, LD_M = 264, 136
 SLOTS = 4
+CLUSTER = 2             # nr_stack_cluster_size: the N-split's pair
 
 
 def _stacked(t, seed, n_models=2):
@@ -161,12 +171,16 @@ def _rows(smem, off, ld, rows, k_tiles):
 
 
 def _gate_tiles(a, k_tiles, stream):
-    """sum over k16 tiles of a [blocks, 16, 16 K] @ the stream's next K
-    tiles, in the order of the k loop: [blocks, 16, 4 gates, 8]."""
-    acc = torch.zeros(a.shape[0], 16, 32)
+    """sum over k16 tiles of a [blocks, rows, 16 K] @ the stream's next K
+    tiles, in the order of the k loop: [blocks, rows, 4 gates, 8]. Each
+    k16 product of bf16 values is exact in f64 and rounded once to f32, so
+    a row's result depends on nothing but its own operands (not on how many
+    rows are multiplied at once)."""
+    acc = torch.zeros(a.shape[0], a.shape[1], 32)
     for kt in range(k_tiles):
-        acc = acc + a[:, :, 16 * kt : 16 * kt + 16] @ stream.next()
-    return acc.reshape(-1, 16, 4, 8)
+        w = stream.next().double()
+        acc = acc + (a[:, :, 16 * kt : 16 * kt + 16].double() @ w).float()
+    return acc.reshape(a.shape[0], a.shape[1], 4, 8)
 
 
 def _hs(x):
@@ -216,6 +230,67 @@ def _lstm_layer(smem, hidden, kx, ks, kh, x, s, out, wpack, bias, t_len, slots):
         assert ws.taken == ws.total and ws.requested == ws.total + ws.slots - 1
 
 
+def _lstm_layer_split(smem, peer_rows, peer_h, hidden, kx, ks, kh, x, s, out,
+                      wpack, bias, t_len, slots):
+    """lstm_layer_split<H, KX, KS, KH, S> over clusters of 2 blocks (blocks
+    2j, 2j + 1): block d of a pair runs direction d for both, its own 16
+    windows as rows 0-15 and its peer's as rows 16-31 of one product per
+    weight tile. Each step it copies the peer's x and s rows into
+    ``peer_rows`` (P: [blocks, 16 LD_P], x at 0, s after 16 KX) and reads
+    the peer's h of the previous step from ``peer_h`` (M: [blocks, 2 parities
+    x 16 x LD_M]); h goes to its own output rows, the peer's output rows and
+    M. A warp owns H/64 groups and its own stream."""
+    groups = hidden // 8
+    gpw = groups // 8
+    tiles = kx + ks + kh
+    flat = wpack.float().reshape(-1)
+    r16 = torch.arange(16)
+    c = {}
+    for d in (0, 1):
+        own, peer = slice(d, None, 2), slice(1 - d, None, 2)
+        warps = [(w * gpw, _Stream(flat, (d * groups + w * gpw) * tiles * TILE,
+                                   gpw * tiles, t_len, slots)) for w in range(8)]
+        for st in range(t_len):
+            t = t_len - 1 - st if d else st
+            tp = t if st == 0 else (t + 1 if d else t - 1)
+            cols_x = torch.arange(16 * kx)
+            peer_rows[own, (r16[:, None] * LD_P + cols_x).reshape(-1)] = smem[
+                peer, (x[0] + (t * x[2] + r16[:, None]) * x[1] + cols_x).reshape(-1)]
+            if ks:
+                cols_s = torch.arange(16 * ks)
+                peer_rows[own, (r16[:, None] * LD_P + 16 * kx + cols_s).reshape(-1)] = smem[
+                    peer, (s[0] + (t * s[2] + r16[:, None]) * s[1] + cols_s).reshape(-1)]
+            xa = torch.cat([_rows(smem[own], x[0], x[1], t * x[2] + r16, kx),
+                            _rows(peer_rows[own], 0, LD_P, r16, kx)], dim=1)
+            if ks:
+                sa = torch.cat([_rows(smem[own], s[0], s[1], t * s[2] + r16, ks),
+                                _rows(peer_rows[own], 16 * kx, LD_P, r16, ks)], dim=1)
+            ha = torch.cat([_rows(smem[own], out[0] + d * hidden, out[1], tp * KG + r16, kh),
+                            _rows(peer_h[own], ((st + 1) % 2) * KG * LD_M, LD_M, r16, kh)],
+                           dim=1)
+            for u0, ws in warps:
+                for q in range(gpw):
+                    cols = (u0 + q) * 8 + torch.arange(8)
+                    acc = _gate_tiles(xa, kx, ws)
+                    acc = acc + bias[d * 4 * hidden + hidden * torch.arange(4)[:, None]
+                                     + cols[None, :]]
+                    if ks:
+                        acc = acc + _gate_tiles(sa, ks, ws)
+                    z = acc + _gate_tiles(torch.zeros_like(ha) if st == 0 else ha, kh, ws)
+                    cq = c.get((d, u0 + q), torch.zeros(z.shape[0], 32, 8))
+                    cq = _hs(z[:, :, 1]) * cq + _hs(z[:, :, 0]) * torch.tanh(z[:, :, 2])
+                    c[(d, u0 + q)] = cq
+                    h = _bf(_hs(z[:, :, 3]) * torch.tanh(cq))
+                    idx = (out[0] + (t * KG + r16)[:, None] * out[1] + d * hidden
+                           + cols[None, :])
+                    smem[own, idx.reshape(-1)] = h[:, :16].reshape(h.shape[0], -1)
+                    smem[peer, idx.reshape(-1)] = h[:, 16:].reshape(h.shape[0], -1)
+                    m_idx = (st % 2) * KG * LD_M + r16[:, None] * LD_M + cols[None, :]
+                    peer_h[own, m_idx.reshape(-1)] = h[:, 16:].reshape(h.shape[0], -1)
+        for _, ws in warps:
+            assert ws.taken == ws.total and ws.requested == ws.total + ws.slots - 1
+
+
 def _read_dense(packed):
     """Row-major [16 NK, 8 NT] of a packed product [NT, NK, 32, 4] as
     tile_mma reads it: lane's uint2 at nt*NK*32 + kt*32 + lane."""
@@ -238,11 +313,13 @@ def _dense(a, w):
     return acc
 
 
-def _emulate_windows(kw, feats, sig, t_len):
+def _emulate_windows(kw, feats, sig, t_len, cluster=CLUSTER):
     """Logits [M, n, 6] and probs [M, n] of the stack_windows kernel's
-    schedule (windows past n stay NaN, as the kernel never writes them)."""
+    schedule (windows past n stay NaN, as the kernel never writes them):
+    with ``cluster`` 2, blocks in pairs and layers 2-4 split by direction
+    (the kernel's), with 1 the unsplit schedule of every layer."""
     n_models, n = sig.shape[0], sig.shape[1]
-    n_blk = -(-n // KG)
+    n_blk = -(-n // (KG * cluster)) * cluster     # whole clusters, padded
     a_sz, b_sz, s_sz = (t_len * KG * ld for ld in (LD_L3, LD_L2, LD_X))
     off_a, off_b, off_s = 0, a_sz, a_sz + b_sz
     off_f = off_a + t_len * KG * LD_L1          # the features, past layer 1's out
@@ -270,9 +347,16 @@ def _emulate_windows(kw, feats, sig, t_len):
             (rk.H3, 8, 4, 8, (off_b, LD_L2, KG), (off_a, LD_L3), "l3_f", "b3"),
             (rk.H4, 16, 0, 4, (off_a, LD_L3, KG), (off_b, LD_L4), "l4_f", "b4"),
         )
-        for hidden, kx, ks, kh, x, out, key, bkey in layers:
-            _lstm_layer(smem, hidden, kx, ks, kh, x, x_s, out, w[key],
-                        w[bkey].reshape(-1), t_len, SLOTS)
+        peer_rows = torch.full((n_blk, KG * LD_P), float("nan"))
+        peer_h = torch.full((n_blk, 2 * KG * LD_M), float("nan"))
+        for li, (hidden, kx, ks, kh, x, out, key, bkey) in enumerate(layers):
+            if cluster == 1 or li == 0:
+                _lstm_layer(smem, hidden, kx, ks, kh, x, x_s, out, w[key],
+                            w[bkey].reshape(-1), t_len, SLOTS)
+            else:
+                _lstm_layer_split(smem, peer_rows, peer_h, hidden, kx, ks, kh, x,
+                                  x_s, out, w[key], w[bkey].reshape(-1), t_len,
+                                  SLOTS)
         # the heads over the 16T rows [t][window] of layer 4's output
         r_all = torch.arange(rows)
         l4 = _rows(smem, off_b, LD_L4, r_all, 8)
@@ -298,6 +382,9 @@ def _emulate_windows(kw, feats, sig, t_len):
 @pytest.mark.parametrize("t", [11, 13])
 @pytest.mark.parametrize("n", [5, 33])
 def test_kernel_schedule_emulation_matches_bf16_plain(n_models, t, n):
+    """The kernel's schedule (clusters of 2, layers 2-4 split) against the
+    bf16 plain version; n = 5 and 33 leave the last cluster one valid
+    block."""
     kw = rk.kernel_weights(_stacked(t, seed=40 + t, n_models=n_models), "cpu")
     feats, sig = _inputs(n, t, n_models, seed=100 * t + n)
     got_l, got_p = _emulate_windows(kw, feats, sig, t)
@@ -309,3 +396,19 @@ def test_kernel_schedule_emulation_matches_bf16_plain(n_models, t, n):
     assert float((got_p - want_p).abs().max()) <= 0.05
     # the logits vary across windows (the check is not vacuous)
     assert float(got_l[0].std(0).min()) > 1e-3
+
+
+@pytest.mark.parametrize("n_models,t,n", [(1, 11, 1), (2, 11, 17), (1, 13, 32),
+                                          (2, 13, 48)])
+def test_split_schedule_bit_identical_to_unsplit(n_models, t, n):
+    """Splitting layers 2-4 over a cluster of 2 blocks changes no product,
+    no k order and no rounding of any (window, unit): the logits and probs
+    equal the unsplit schedule's bit for bit, for one block (its cluster
+    padded with an empty one), a block and one window, two whole blocks and
+    three (the last cluster one valid block)."""
+    kw = rk.kernel_weights(_stacked(t, seed=60 + t, n_models=n_models), "cpu")
+    feats, sig = _inputs(n, t, n_models, seed=7 * t + n)
+    split_l, split_p = _emulate_windows(kw, feats, sig, t, cluster=2)
+    whole_l, whole_p = _emulate_windows(kw, feats, sig, t, cluster=1)
+    assert not torch.isnan(split_l).any()
+    assert torch.equal(split_l, whole_l) and torch.equal(split_p, whole_p)
