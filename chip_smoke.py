@@ -22,16 +22,28 @@ Phases, each printing one JSON line:
              nvidia-smi's name and power limit.
 2. build   - compiles csrc/*.cu with nvcc (one process per source, in
              parallel) and the host library native/src/nanorev.cpp with
-             g++ beside them, and reports what ptxas says.
+             g++ beside them, and reports what ptxas says and the count of
+             HGMMA (wgmma) and HMMA (mma.sync) instructions in the stack
+             library's SASS (cuobjdump -sass).
    probe   - the stack's weight stream alone (csrc/stream_probe.cu): at
              one block per SM with stack_full's shared memory at T = 11,
-             each warp streams its 80 KB of a model's packed l3_f through
+             each warp streams 80 KB of a model's packed l3_r through
              a ring of 8 KB, by per-lane cp.async, by one bulk copy per 1
              or 2 KB fill, and by bulk copies multicast over clusters of 2,
              4 and 8; every block's acknowledged words must equal the
              source's; per variant the L2 read rate, each SM's fill rate in
              bytes per SM clock (clocks.sm sampled beside the window) and
-             cudaOccupancyMaxActiveClusters.
+             cudaOccupancyMaxActiveClusters. Then (csrc/mma_probe.cu) at
+             layer 3's shape (512 gate columns, 32 windows, 20 k16 tiles,
+             operands in shared memory): (a) the split layers' mma.sync
+             loop, (b) wgmma m64n16k16 (two sharing A) and m64n32k16 from
+             two warpgroups, SM clocks a step of each and their sums
+             against the f64 reference, (c) the f32 sums of (b) bit by bit
+             against (a)'s, and the rule that chose the design (wgmma at
+             1.5x or more); (d) one producer warp filling one 48 or 64 KB
+             ring per block with per-lane cp.async or cp.async.bulk fills
+             of 8-32 KB (acknowledged words checked), each SM's fill rate
+             in bytes per SM clock.
 3. gather  - packs one full-tier batch (196,608 windows) from synthetic
              reads, decodes it on the card, and holds the window-gather
              kernel bit-exact against its plain version on the card and on
@@ -66,7 +78,7 @@ Phases, each printing one JSON line:
              plausibility; times kernel and plain version; reports the
              schedule's bytes and rates as phase stack does, the sha256 of
              the logits and probs and ptxas's registers and spills. Then
-             one T = 13 launch (2-slot weight rings) on 500 seeded random
+             one T = 13 launch (a 1-slot weight ring) on 500 seeded random
              windows against the bf16 plain version (the same bars, and
              its sha256), and its time on as many windows as the T = 11
              run.
@@ -367,15 +379,20 @@ def phase_build() -> dict:
 
     zlib_available = getattr(native, "zlib_available", None)
     emit({"phase": "build", "seconds": seconds, "nvcc": build.nvcc_path(),
-          "ptxas": ptxas,
+          "ptxas": ptxas, "stack_sass": sass_counts(str(build._lib_path("reviser_stack"))),
           "zlib_loaded": zlib_available() if zlib_available else None})
     return logs
 
 
-# stack_full's dynamic shared memory at T = 11 (csrc/reviser_stack.cu: the
-# layer outputs, the staged rows, 8 warps x 8 slots of 1 KB and their
-# barriers), which leaves room for one block per SM
-STACK_SMEM_T11 = 11 * 16 * (264 + 136) * 2 + 32 * (72 + 24) * 2 + 32 * 6 * 4 + 8 * 8 * (1024 + 16)
+def sass_counts(lib: str) -> dict:
+    """The tensor-core instructions of a built library's SASS (cuobjdump
+    -sass): HGMMA (wgmma) and HMMA (mma.sync)."""
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    return {"HGMMA": out.count("HGMMA"), "HMMA": out.count("HMMA")}
 
 
 def phase_probe() -> dict:
@@ -396,10 +413,10 @@ def phase_probe() -> dict:
         init_reviser_params(gen, ReviserConfig(window=WINDOW, n_classes=6)), gen)
     packed = rk.pack_full_weights(rk.stack_models(
         [rk.pack_stack_weights(fold_inference_params(p), WINDOW)]))
-    src = torch.tensor(packed["l3_f"][0], dtype=torch.bfloat16, device=dev).contiguous()
+    src = torch.tensor(packed["l3_r"][0], dtype=torch.bfloat16, device=dev).contiguous()
     want = sp.expected_acks(src)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    smem = STACK_SMEM_T11
+    smem = rk.stack_smem_bytes("stack_full", WINDOW)   # one block an SM
     variants = [(0, 1, 1024), (1, 1, 1024), (1, 1, 2048)] + [
         (2, c, f) for c in (2, 4, 8) for f in (1024, 2048)]
     rows = []
@@ -427,16 +444,112 @@ def phase_probe() -> dict:
                 "sm_fill_tb_per_s": n_ctas * per_cta / sec / 1e12,
                 "per_sm_bytes_per_clk": (per_cta / sec / (clk["sm_mhz"] * 1e6)
                                          if clk["sm_mhz"] else None)})
+        products = probe_products(dev, sms, smem, clocks)
+        fills = probe_fills(dev, sms, smem, clocks)
     base = rows[0]["per_sm_bytes_per_clk"]
     ratio = {f"C={r['cluster']},F={r['fill_bytes']}":
              r["per_sm_bytes_per_clk"] / base
              for r in rows if r["variant"] == 2 and base and r["per_sm_bytes_per_clk"]}
     info = {"phase": "probe", "sms": sms, "smem": smem,
             "source_bytes": sp.source_bytes(), "rows": rows,
-            "multicast_fill_rate_over_cp_async": ratio,
-            "nvidia_smi": nvidia_smi_line()}
+            "multicast_fill_rate_over_cp_async": ratio, **products,
+            "fills": fills, "nvidia_smi": nvidia_smi_line()}
     emit(info)
     return info
+
+
+def _calibrated(launch, target_ms: float = 200.0, start: int = 64) -> int:
+    """An odd count n for launch(n) to take about target_ms."""
+    ms0 = cuda_ms(lambda: launch(start), reps=1)
+    return max(start, int(target_ms / max(ms0, 1e-3) * start)) | 1
+
+
+def probe_products(dev, sms: int, smem: int, clocks) -> dict:
+    """The split layers' products at layer 3's shape (csrc/mma_probe.cu),
+    one block per SM, operands in shared memory: (a) the split layers'
+    mma.sync loop, (b) wgmma m64n16k16 (two sharing A) and m64n32k16 from
+    two warpgroups; SM clocks per step of each (clocks.sm sampled beside
+    the window) and (c) the f32 sums of (b) bit by bit against (a)'s; the
+    rule of the redesign: wgmma at 1.5x or more per unit of work takes it."""
+    import torch
+
+    from nanoreviser_torch.ops import mma_probe as mp
+
+    w, x = mp.operands(SEED)
+    ref = mp.reference(w, x)
+    pk = {k: v.to(dev) for k, v in mp.packed(w, x).items()}
+    operands = {0: ("mma_w", "mma_x"), 1: ("wgmma_w", "wgmma_x"),
+                2: ("wgmma_w", "wgmma_x")}
+    macs = mp.COLS * mp.WINDOWS * 16 * mp.K_TILES
+    sums, rows = {}, []
+    for v, (kw, kx) in operands.items():
+        out = torch.zeros(sms * mp.COLS * mp.WINDOWS, device=dev)
+        launch = lambda n: mp.launch_mma(v, sms, smem, pk[kw], pk[kx], n, out)
+        launch(1)                                    # one chain: the sums
+        torch.cuda.synchronize()
+        got = out.view(sms, mp.COLS, mp.WINDOWS).cpu()
+        check(bool((got == got[:1]).all()), f"mma probe {v}: blocks disagree")
+        sums[v] = got[0]
+        err = float((got[0].double() - torch.from_numpy(ref)).abs().max())
+        check(err <= 1e-3, f"mma probe {v}: max |sum - f64| {err}")
+        steps = _calibrated(launch)
+        ms, clk = timed_window(lambda: launch(steps), 1, clocks)
+        per_step = (ms * 1e-3 * clk["sm_mhz"] * 1e6 / steps) if clk["sm_mhz"] else None
+        rows.append({"variant": v, "what": mp.VARIANTS[v], "ctas": sms, "steps": steps,
+                     "ms": ms, **clk, "max_abs_err_vs_f64": err,
+                     "sm_clocks_per_step": per_step,
+                     "sm_clocks_per_1kb_tile_per_warp": (per_step / 40 if per_step else None),
+                     "macs_per_sm_clock": macs / per_step if per_step else None})
+    a = rows[0]["sm_clocks_per_step"]
+    speedup = {f"n{16 if r['variant'] == 1 else 32}":
+               (a / r["sm_clocks_per_step"] if a and r["sm_clocks_per_step"] else None)
+               for r in rows[1:]}
+    bit = {f"n{16 if v == 1 else 32}": int((sums[v].view(torch.int32)
+                                           != sums[0].view(torch.int32)).sum())
+           for v in (1, 2)}
+    best = max((s for s in speedup.values() if s), default=0.0)
+    return {"products": rows,
+            "bit_check": {"accumulators": mp.COLS * mp.WINDOWS,
+                          "differing_from_mma_sync": bit},
+            "wgmma_speedup_per_unit_of_work": speedup,
+            "rule": {"threshold": 1.5, "best": best,
+                     "design": "A (wgmma)" if best >= 1.5 else "B (mma.sync, producer warp)"}}
+
+
+def probe_fills(dev, sms: int, smem: int, clocks) -> list:
+    """Weight fills of one 48 or 64 KB ring per block from one producer
+    warp (csrc/mma_probe.cu): per-lane cp.async with
+    cp.async.mbarrier.arrive and one cp.async.bulk per fill, fills of 8-32
+    KB; every block's
+    acknowledged words checked; each SM's fill rate in bytes per SM
+    clock."""
+    import numpy as np
+    import torch
+
+    from nanoreviser_torch.ops import mma_probe as mp
+
+    rng = np.random.default_rng(SEED + 4)
+    nbytes = mp.fill_source_bytes()
+    src = torch.tensor(rng.integers(-2**31, 2**31, nbytes // 4), dtype=torch.int32,
+                       device=dev)
+    rows = []
+    for v in (0, 1):
+        for f, ring in mp.FILL_SHAPES:
+            want = mp.fill_acks(src, f)
+            out = torch.zeros(sms * 256, dtype=torch.int32, device=dev)
+            launch = lambda n: mp.launch_fill(v, f, ring, sms, smem, src, n, out)
+            reps = _calibrated(launch, start=65)
+            ms, clk = timed_window(lambda: launch(reps), 1, clocks)
+            got = out.view(sms, 256).cpu().numpy()
+            check(bool((got == want[None]).all()),
+                  f"fill probe variant {v} ({f} B): acknowledged words differ")
+            sec = ms * 1e-3
+            rows.append({"variant": v, "what": mp.FILL_VARIANTS[v], "fill_bytes": f,
+                         "ring_bytes": ring, "ctas": sms, "reps": reps, "ms": ms,
+                         **clk, "l2_tb_per_s": sms * nbytes * reps / sec / 1e12,
+                         "per_sm_bytes_per_clk": (nbytes * reps / sec / (clk["sm_mhz"] * 1e6)
+                                                  if clk["sm_mhz"] else None)})
+    return rows
 
 
 def phase_gather(tmp: str, weights):
@@ -689,7 +802,7 @@ def phase_stack(eng, dec, sig, tier, w_valid, weights, build_logs):
 
 
 def windows_t13(dev, n_time: int) -> dict:
-    """stack_windows at T = 13 (4-slot rings): one launch on 500 seeded
+    """stack_windows at T = 13 (a 1-slot ring): one launch on 500 seeded
     random windows held to the bf16 plain version's bars, then its time on
     n_time windows."""
     import numpy as np

@@ -32,7 +32,8 @@
 // (stack_windows_fetch_bytes in ops/reviser_kernel.py). Both kernels run
 // as clusters of kCluster = 2 CTAs that split layers 2-4 by direction
 // (the N-split, part c below), so each CTA streams half of those weights
-// per step for twice the windows.
+// per step for twice the windows, through a ring that a producer warp
+// fills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,8 +96,11 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 
 // ---------------------------------------------------------- the design
 //
-// Grid: (blocks of kG = 16 windows) x models, 256 threads = 8 warps.
-// stack_full (window w covers base rows w .. w+T-1):
+// Grid: (blocks of kG = 16 windows) x models, 288 threads: 8 consumer warps
+// (kConsumers = 256 threads) run everything below; warp 8, the producer,
+// only fills the split layers' weight ring (part c). Nine warps leave 168
+// registers a thread (three warps share an SM sub-partition). stack_full
+// (window w covers base rows w .. w+T-1):
 //
 // a. stages base rows w0 .. w0+31 (kG + T - 1 <= 32 are used) of the
 //    gathered signal (bf16, 50 of its 64 columns) and of the features (f32,
@@ -144,8 +148,8 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 //    weights per step for twice the windows (a warp owns H/64 groups). Its
 //    own tile reads its own rows as above; the peer's tile reads the peer's
 //    x_t and s_t rows, copied each step from the peer's shared memory
-//    (distributed shared memory, ld through mapa) into P [16][kLdP] of its
-//    own, and h of the previous step from M [2][16][kLdM], where the CTA
+//    (distributed shared memory, ld through mapa) into P [16][ldP] of its
+//    own, and h of the previous step from M [2][16][ldM], where the CTA
 //    keeps the peer windows' h of its direction (by step parity). The h of
 //    the peer's windows is also stored into the peer's layer output (st
 //    through mapa), where the next layer and the heads find it. A cluster
@@ -153,6 +157,20 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 //    nothing of each other. The products of a (window, unit), their k
 //    order and every rounding are those of the unsplit layer, so the
 //    logits are bit-identical to it.
+//    The split layers' weights come through one ring per CTA of S slots
+//    of kFill = 16 KB (two 1 KB tiles of every consumer warp: the next two
+//    of its per-step sequence), which the producer warp fills with one
+//    cp.async.bulk each, ahead of use and across step and layer
+//    boundaries, on full and empty mbarriers. A consumer warp waits for a
+//    fill, loads its two tiles' B fragments into registers and releases
+//    the slot at once. (Layer 3's two groups a warp run one after the
+//    other: with their k chains interleaved on one pair of A fragments the
+//    accumulators of both spilled at 168 registers.) (A probe, mma_probe.cu,
+//    found wgmma no faster than this mma.sync loop at 32 windows: with the
+//    weights as its 64-row A operand every product re-reads its A tile
+//    from shared memory. Its fills from one producer warp peak with 16 KB
+//    bulk copies.) The ring's memory holds layer 1's per-warp rings while
+//    layer 1 runs; the producer starts when layer 1 ends.
 // d. the per-t heads as three products over all 16T (t, window) rows at
 //    once: d1 = bf16(relu(l4 @ d1w + d1b)), d2 = bf16(relu(d1 @ d2w +
 //    d2b)), m = bf16(relu(d2 @ mow + mob)); then on the CUDA cores acc +=
@@ -168,13 +186,13 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 // L2 again: 12.8 MB per block and model unsplit, 305 GB per full batch at
 // T = 11, 6.8 MB and 162 GB with the N-split (stack_full_fetch_bytes in
 // ops/reviser_kernel.py). So the weights are packed once per engine in the
-// order a warp consumes them (pack_full_weights), and each lane copies its
-// own 32 bytes of every 1 KB tile into its own slice of a per-warp ring in
-// shared memory with cp.async, S - 1 = 1..7 tiles ahead and across the
-// step barriers: no lane waits on another for weights. (A probe of the
-// stream, stream_probe.cu, found these per-lane copies faster per SM than
-// TMA bulk copies, multicast or not, of 1-2 KB fills: so the split, and
-// not multicast, is what cuts the bytes per window.) The conv and head
+// order the block consumes them (pack_full_weights): layer 1 per warp,
+// each lane copying its own 32 bytes of every 1 KB tile into its own slice
+// of a per-warp ring with cp.async, 2S - 1 tiles ahead; layers 2-4 per
+// 16 KB fill of the producer's ring. (A probe of the stream,
+// stream_probe.cu, found TMA bulk copies of 1-2 KB fills, multicast or
+// not, slower per SM than per-lane copies: so the split, and not
+// multicast, is what cuts the bytes per window.) The conv and head
 // weights are read once per block (once per pair of m-tiles for the
 // heads) straight from L2.
 //
@@ -184,17 +202,22 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 //                W[16k+2i+9][8n+g])
 // and for an LSTM layer, direction d and unit group u, the k-tiles of its
 // segments (wi, [wis,] wh) in turn, each as two halves of gate pairs:
-//   [d][u][tile][g / 2][l][g % 2][4], gate g's n8 tile = columns
-//   g*H + 8u .. +7.
+//   tile [g / 2][l][g % 2][4], gate g's n8 tile = columns g*H + 8u .. +7,
+// layer 1 as [d][u][tile] (l1_f), layers 2-4 as [d][fill][warp][2 tiles]
+// (l2_r, l3_r, l4_r): warp w's two tiles of fill f are tiles 2f and 2f + 1
+// of its groups' tiles in turn (group wQ's, then wQ + 1's, Q = H/64).
 //
 // Shared memory: layer outputs A [T][16][264] (layers 1, 3) and B
 // [T][16][136] (layers 2, 4), bf16, rows padded by 16 bytes so that the 8
 // row reads of an ldmatrix phase hit distinct banks; the staged rows; the
-// peer's rows P and h M; the rings. stack_full: 230,400 B at T = 11
-// (8-slot rings), 231,424 B at T = 13 (5-slot). stack_windows: 232,448 B
-// at T = 11 (6-slot), 229,888 B at T = 13 (2-slot).
+// peer's rows P and h M, their strides per layer; the ring and its
+// barriers. stack_full: 228,416 B at T = 11 (4 slots), 221,216 B at T =
+// 13 (2). stack_windows: 230,448 B at T = 11 (3), 227,856 B at T = 13
+// (1).
 
-constexpr int kThreads = 256;
+constexpr int kConsumers = 256;          // warps 0-7: all but the ring's fills
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 32;   // warp 8: the producer
 constexpr int kCluster = 2;              // CTAs per cluster (the N-split)
 static_assert(kCluster == 2, "the N-split gives each CTA of a pair one direction");
 constexpr int kRows = 32;                // staged base rows per block
@@ -203,11 +226,24 @@ constexpr int kLdF = 24;                 // an odd number of 16-byte units
 constexpr int kLdZ = 408;
 constexpr int kLdL1 = 40, kLdL2 = 136, kLdL3 = 264, kLdL4 = 136;
 constexpr int kLdH1 = 136, kLdH2 = 40;
-constexpr int kLdP = 264, kLdM = 136;    // the peer's x|s rows, its h
 constexpr int kTile = 512;               // bf16 of one streamed weight tile
 constexpr int kConvNT = kConv / 8;       // n8 tiles of z1 and z2
-constexpr size_t kRingSlot = (size_t)(kThreads / 32) * kTile * sizeof(bf16);
-constexpr size_t kPeerBytes = (size_t)(kG * kLdP + 2 * kG * kLdM) * sizeof(bf16);
+constexpr int kFill = 16384;             // bytes of a ring slot: 2 tiles a warp
+static_assert(kFill == kConsumerWarps * 2 * kTile * (int)sizeof(bf16), "");
+constexpr size_t kRingSlot = kFill + 16;   // a slot and its two barriers
+constexpr uint32_t kSpinLimit = 1u << 26;  // a wait polled this often traps
+
+// A split layer's copies of the peer's rows: P [16][ldP] (x, then s) and M
+// [2][16][ldM] (h by step parity), strides an odd number of 16-byte units
+__host__ __device__ constexpr int peer_ldp(int kx, int ks) { return (kx + ks) * 16 + 8; }
+__host__ __device__ constexpr int peer_ldm(int h) { return h + 8; }
+__host__ __device__ constexpr int peer_elems(int kx, int ks, int h) {
+  return kG * peer_ldp(kx, ks) + 2 * kG * peer_ldm(h);
+}
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr size_t kPeerBytes =
+    sizeof(bf16) * cmax(peer_elems(2, 0, kH2),
+                        cmax(peer_elems(8, 4, kH3), peer_elems(16, 0, kH4)));
 
 // ---- PTX wrappers
 
@@ -265,10 +301,81 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 }
 
 // every thread of both CTAs: orders shared-memory accesses, local and
-// remote, across the cluster
+// remote, across the cluster; arrive and wait may be split (the producer)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the consumer warps alone (named barrier 1)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+}
+
+// named barrier 2: the consumers arrive when layer 1 is done with the
+// ring's memory, the producer warp waits for that
+__device__ __forceinline__ void layer1_done_arrive() {
+  asm volatile("bar.arrive 2, %0;\n" :: "n"(kThreads) : "memory");
+}
+__device__ __forceinline__ void layer1_done_wait() {
+  asm volatile("bar.sync 2, %0;\n" :: "n"(kThreads) : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (the bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait that polls kSpinLimit times traps (a launch error, not a hang)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n == kSpinLimit) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// bytes (a multiple of 16, 16-byte aligned) from global memory into shared
+// memory at dst, completing on `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // the generic address of the same shared-memory location in CTA `rank`
@@ -439,116 +546,208 @@ __device__ __forceinline__ void lstm_layer(const bf16* x, int x_ld, int x_step,
         put_bf16x2(o + 8 * out_ld, hv[2], hv[3]);
       }
     }
-    __syncthreads();
+    consumer_sync();
   }
   cp_async_wait<0>();
 }
 
+// The split layers' weight ring: S slots of kFill bytes at `slots`, slot s
+// with a full barrier at bars + 8 s (count 1: the producer's expect_tx,
+// completed by the bytes of its bulk copy) and an empty barrier at bars +
+// 8 (S + s) (count kConsumerWarps: one arrival a consumer warp once its
+// tiles are in registers). Fill n goes to slot n % S in the phase of
+// parity (n / S) & 1; every thread counts the fills it takes part in.
+template <int S>
+struct Ring {
+  unsigned char* slots;
+  uint32_t bars;
+  uint32_t n;
+
+  // thread 0, before the block's first barrier
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (S + s), kConsumerWarps);
+    }
+    fence_mbar_init();
+  }
+
+  // the producer warp (all lanes): lane 0 fills slot n % S with the kFill
+  // bytes at src once the consumers have released its previous fill
+  __device__ __forceinline__ void fill(const bf16* src) {
+    if ((threadIdx.x & 31) == 0) {
+      const uint32_t s = n % S, k = n / S, full = bars + 8 * s;
+      if (k > 0) mbar_wait(bars + 8 * (S + s), (k - 1) & 1);
+      mbar_expect_tx(full, kFill);
+      bulk_copy(smem_u32(slots + (size_t)s * kFill), src, kFill, full);
+    }
+    ++n;
+  }
+
+  // a consumer warp: this lane's B fragments of the warp's two tiles of
+  // fill n (tile t, gate g: b[t][2g], b[t][2g + 1]), then the slot released
+  __device__ __forceinline__ void take(uint32_t (&b)[2][8]) {
+    const uint32_t s = n % S;
+    mbar_wait(bars + 8 * s, (n / S) & 1);
+    const uint4* p = reinterpret_cast<const uint4*>(
+        slots + (size_t)s * kFill + (threadIdx.x >> 5) * 2 * kTile * sizeof(bf16)) +
+        (threadIdx.x & 31);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const uint4 lo = p[t * 64], hi = p[t * 64 + 32];
+      b[t][0] = lo.x; b[t][1] = lo.y; b[t][2] = lo.z; b[t][3] = lo.w;
+      b[t][4] = hi.x; b[t][5] = hi.y; b[t][6] = hi.z; b[t][7] = hi.w;
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(bars + 8 * (S + s));
+    ++n;
+  }
+};
+
 // acc[i][g] += A_i @ (gate g's n8 tile) over K k16 tiles for the two m16
 // tiles i (a_lane[i]: this lane's ldmatrix address in the first k tile),
-// each weight fragment taken once from the stream; per accumulator the
-// same k order as gate_tiles.
+// each weight fragment used for both, the tiles taken from the ring two a
+// fill; per accumulator the same k order as gate_tiles. With S > 1 slots
+// the next fill's fragments are taken before this fill's products, so
+// their wait and loads overlap the products (with one slot that fill is
+// only requested once this one is released).
 template <int K, int S>
-__device__ __forceinline__ void gate_tiles2(const bf16* a0_lane,
-                                            const bf16* a1_lane, bool zero_a,
-                                            WeightStream<S>& ws,
-                                            float (&acc)[2][4][4]) {
+__device__ __forceinline__ void gate_chain(const bf16* a0_lane,
+                                           const bf16* a1_lane, bool zero_a,
+                                           Ring<S>& ring, float (&acc)[2][4][4]) {
+  static_assert(K % 2 == 0, "a fill holds two k tiles of a group");
+  constexpr bool kAhead = S > 1;
+  uint32_t b[2][8], nb[2][8];
+  if (kAhead) ring.take(b);
 #pragma unroll
-  for (int kt = 0; kt < K; ++kt) {
-    uint32_t a0[4] = {0u, 0u, 0u, 0u}, a1[4] = {0u, 0u, 0u, 0u}, b[8];
-    if (!zero_a) {
-      ldsm_x4(a0, a0_lane + kt * 16);
-      ldsm_x4(a1, a1_lane + kt * 16);
+  for (int f = 0; f < K / 2; ++f) {
+    const bool more = f + 1 < K / 2;
+    if (!kAhead) ring.take(b);
+    else if (more) ring.take(nb);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int kt = 2 * f + j;
+      uint32_t a0[4] = {0u, 0u, 0u, 0u}, a1[4] = {0u, 0u, 0u, 0u};
+      if (!zero_a) {
+        ldsm_x4(a0, a0_lane + kt * 16);
+        ldsm_x4(a1, a1_lane + kt * 16);
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        mma_bf16(acc[0][g], a0, b[j][2 * g], b[j][2 * g + 1]);
+        mma_bf16(acc[1][g], a1, b[j][2 * g], b[j][2 * g + 1]);
+      }
     }
-    ws.next(b);
+    if (kAhead && more) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      mma_bf16(acc[0][g], a0, b[2 * g], b[2 * g + 1]);
-      mma_bf16(acc[1][g], a1, b[2 * g], b[2 * g + 1]);
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) b[j][e] = nb[j][e];
     }
   }
 }
 
+__device__ __forceinline__ void zero_acc(float (&a)[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[i][g][e] = 0.0f;
+}
+
+// fills a step of a split layer: a warp's Q = H / 64 groups x the layer's
+// k16 tiles, two tiles a fill
+template <int H, int KX, int KS, int KH>
+__host__ __device__ constexpr int split_fills() {
+  return (H / 64) * (KX + KS + KH) / 2;
+}
+
+// The producer's part of a split layer: every fill of its T steps, in the
+// order the consumers take them (wpack: [2 directions][fills][kFill]).
+template <int H, int KX, int KS, int KH, int S>
+__device__ __forceinline__ void produce_layer(Ring<S>& ring, const bf16* wpack,
+                                              int T, int dir) {
+  constexpr int NF = split_fills<H, KX, KS, KH>();
+  const bf16* src = wpack + (size_t)dir * NF * (kFill / sizeof(bf16));
+  for (int st = 0; st < T; ++st)
+    for (int f = 0; f < NF; ++f) ring.fill(src + (size_t)f * (kFill / sizeof(bf16)));
+}
+
 // One Bi-LSTM layer (hidden size H, layers 2-4) split over the cluster by
-// direction: this CTA runs direction `dir` for its own 16 windows (m tile
-// 0: x, s, h rows in its own buffers, as lstm_layer reads them) and its
-// peer's 16 (m tile 1). The peer's x and s rows of step t are copied from
-// x_peer / s_peer (the same buffers in the peer CTA) into P (x at columns
-// 0.., s after KX k16 tiles); the peer windows' h is kept in M [parity of
-// the step][16][kLdM]. h goes to out (own windows) and to out_peer and M
-// (the peer's). A warp owns H/64 groups of 8 units. Ends with a cluster
-// barrier, after which both CTAs' outputs hold both directions.
+// direction, the consumer warps' part: this CTA runs direction `dir` for
+// its own 16 windows (m tile 0: x, s, h rows in its own buffers, as
+// lstm_layer reads them) and its peer's 16 (m tile 1). The peer's x and s
+// rows of step t are copied from x_peer / s_peer (the same buffers in the
+// peer CTA) into P [16][ldP] (x at columns 0.., s after KX k16 tiles); the
+// peer windows' h is kept in M [parity of the step][16][ldM] (P and M at
+// PM). h goes to out (own windows) and to out_peer and M (the peer's). A
+// warp owns Q = H/64 groups of 8 units; the weights come from the ring.
+// Ends with a cluster barrier, after which both CTAs' outputs hold both
+// directions.
 template <int H, int KX, int KS, int KH, int S>
 __device__ __forceinline__ void lstm_layer_split(
     const bf16* x, const bf16* x_peer, int x_ld, int x_step, const bf16* s,
     const bf16* s_peer, int s_ld, int s_step, bf16* out, bf16* out_peer,
-    int out_ld, bf16* P, bf16* M, const bf16* wpack,
-    const float* __restrict__ bias, int T, bf16* ring, int dir) {
-  constexpr int G = H / 8, GPW = G / 8, TILES = KX + KS + KH;
+    int out_ld, bf16* PM, const float* __restrict__ bias, int T,
+    Ring<S>& ring, int dir) {
+  constexpr int Q = H / 64, LDP = peer_ldp(KX, KS), LDM = peer_ldm(H);
   constexpr int XU = KX * 2, SU = KS * 2;        // 16-byte units of a row
-  static_assert(GPW >= 1 && (KX + KS) * 16 <= kLdP - 8 && H <= kLdM - 8, "");
+  static_assert(Q >= 1 && peer_elems(KX, KS, H) * sizeof(bf16) <= kPeerBytes, "");
+  bf16* P = PM;
+  bf16* M = PM + kG * LDP;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int u0 = warp * GPW;
+  const int u0 = warp * Q;
   const int gq = lane >> 2, tq = lane & 3;
   const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  WeightStream<S> ws;
-  ws.start(wpack + (size_t)(dir * G + u0) * TILES * kTile + lane * 8,
-           ring + lane * 8, GPW * TILES, T);
   const float* bd = bias + dir * 4 * H;
-  float c[GPW][2][4];
+  float c[Q][2][4];
+  float2 bv[Q][4];   // this lane's biases, the same every step
 #pragma unroll
-  for (int q = 0; q < GPW; ++q)
+  for (int q = 0; q < Q; ++q) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[q][i][e] = 0.0f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      bv[q][g] = __ldg(reinterpret_cast<const float2*>(bd + g * H + (u0 + q) * 8 + 2 * tq));
+  }
 
   for (int st = 0; st < T; ++st) {
     const int t = dir ? T - 1 - st : st;
     const int tp = st == 0 ? t : (dir ? t + 1 : t - 1);
-    for (int e = tid; e < kG * (XU + SU); e += kThreads) {
+    for (int e = tid; e < kG * (XU + SU); e += kConsumers) {
       const int r = e / (XU + SU), q = e % (XU + SU);
       const uint4* src =
           q < XU ? reinterpret_cast<const uint4*>(
                        x_peer + ((size_t)t * x_step + r) * x_ld) + q
                  : reinterpret_cast<const uint4*>(
                        s_peer + ((size_t)t * s_step + r) * s_ld) + (q - XU);
-      reinterpret_cast<uint4*>(P + r * kLdP)[q] = *src;
+      reinterpret_cast<uint4*>(P + r * LDP)[q] = *src;
     }
-    __syncthreads();
+    consumer_sync();
     const bf16* xa = x + ((size_t)t * x_step + a_row) * x_ld + a_col;
     const bf16* sa = s + ((size_t)t * s_step + a_row) * s_ld + a_col;
     const bf16* ha = out + ((size_t)tp * kG + a_row) * out_ld + dir * H + a_col;
-    const bf16* pa = P + a_row * kLdP + a_col;
-    const bf16* ma = M + ((size_t)((st + 1) & 1) * kG + a_row) * kLdM + a_col;
+    const bf16* pa = P + a_row * LDP + a_col;
+    const bf16* ma = M + ((size_t)((st + 1) & 1) * kG + a_row) * LDM + a_col;
 #pragma unroll
-    for (int q = 0; q < GPW; ++q) {
+    for (int q = 0; q < Q; ++q) {
       const int col = (u0 + q) * 8 + 2 * tq;   // this lane's first unit
       float acc[2][4][4], part[2][4][4];
+      zero_acc(acc);
+      gate_chain<KX>(xa, pa, false, ring, acc);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
-      gate_tiles2<KX>(xa, pa, false, ws, acc);
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float2 bv = __ldg(reinterpret_cast<const float2*>(bd + g * H + col));
+      for (int g = 0; g < 4; ++g)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          acc[i][g][0] += bv.x; acc[i][g][1] += bv.y;
-          acc[i][g][2] += bv.x; acc[i][g][3] += bv.y;
+          acc[i][g][0] += bv[q][g].x; acc[i][g][1] += bv[q][g].y;
+          acc[i][g][2] += bv[q][g].x; acc[i][g][3] += bv[q][g].y;
         }
-      }
       if constexpr (KS > 0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[i][g][e] = 0.0f;
-        gate_tiles2<KS>(sa, pa + KX * 16, false, ws, part);
+        zero_acc(part);
+        gate_chain<KS>(sa, pa + KX * 16, false, ring, part);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -556,13 +755,8 @@ __device__ __forceinline__ void lstm_layer_split(
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[i][g][e] += part[i][g][e];
       }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[i][g][e] = 0.0f;
-      gate_tiles2<KH>(ha, ma, st == 0, ws, part);
+      zero_acc(part);
+      gate_chain<KH>(ha, ma, st == 0, ring, part);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         // accumulator e: window gq (e < 2) or gq + 8, unit col + (e & 1)
@@ -581,17 +775,16 @@ __device__ __forceinline__ void lstm_layer_split(
           put_bf16x2(out + o, hv[0], hv[1]);
           put_bf16x2(out + o + 8 * out_ld, hv[2], hv[3]);
         } else {
-          bf16* m = M + ((size_t)(st & 1) * kG + gq) * kLdM + col;
+          bf16* m = M + ((size_t)(st & 1) * kG + gq) * LDM + col;
           put_bf16x2(m, hv[0], hv[1]);
-          put_bf16x2(m + 8 * kLdM, hv[2], hv[3]);
+          put_bf16x2(m + 8 * LDM, hv[2], hv[3]);
           put_bf16x2(out_peer + o, hv[0], hv[1]);
           put_bf16x2(out_peer + o + 8 * out_ld, hv[2], hv[3]);
         }
       }
     }
-    __syncthreads();
+    consumer_sync();
   }
-  cp_async_wait<0>();
   cluster_sync();
 }
 
@@ -627,7 +820,7 @@ __device__ __forceinline__ void dense_tiles(const bf16* A, int lda, int n_mt,
   const int lane = threadIdx.x & 31;
   const int n_mc = (n_mt + 1) / 2;
   for (int task = threadIdx.x >> 5; task < n_nt * n_mc;
-       task += kThreads / 32) {
+       task += kConsumerWarps) {
     const int nt = task % n_nt, mc = task / n_nt;
     const int nm = min(2, n_mt - 2 * mc);
     float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
@@ -696,38 +889,64 @@ CoreWeights core_weights_of(const void* const* p) {
       (const float*)p[17]};
 }
 
-// c. and d. for the block's 16 windows w0.. of model m: the features (layer
-// 1's input) at row (t * f_step + r) of F [.][kLdF], the conv outputs
-// (layer 3's signal input) at row (t * s_step + r) of SG [.][kLdX]. A
-// [T][16][kLdL3] and B [T][16][kLdL2] hold the layer outputs (F may lie in
-// A past [T][16][kLdL1], where layer 1 writes), then the heads' scratch.
-// P and M: the split layers' copies of the peer's rows. Every CTA of the
-// cluster runs all of it, whatever its windows (none may leave early).
+// The producer warp's part of the stack core: once layer 1 has left the
+// ring's memory, every fill of layers 2-4 in turn, taking part in the
+// cluster barriers that end layer 1 and each split layer (an arrival right
+// after a layer's last fill is issued, the wait before the next arrival),
+// so its fills run ahead across the layer boundaries.
+template <int S>
+__device__ __forceinline__ void stack_producer(const CoreWeights& w, int T,
+                                               Ring<S>& ring) {
+  const int dir = (int)cluster_rank();
+  layer1_done_wait();
+  cluster_sync();                          // the end of layer 1
+  produce_layer<kH2, 2, 0, 4, S>(ring, w.l2, T, dir);
+  __syncwarp();
+  cluster_arrive();                        // the end of layer 2
+  produce_layer<kH3, 8, 4, 8, S>(ring, w.l3, T, dir);
+  __syncwarp();
+  cluster_wait();
+  cluster_arrive();                        // the end of layer 3
+  produce_layer<kH4, 16, 0, 4, S>(ring, w.l4, T, dir);
+  __syncwarp();
+  cluster_wait();
+  cluster_sync();                          // the end of layer 4
+}
+
+// c. and d. for the block's 16 windows w0.. of model m, the consumer
+// warps' part: the features (layer 1's input) at row (t * f_step + r) of F
+// [.][kLdF], the conv outputs (layer 3's signal input) at row (t * s_step
+// + r) of SG [.][kLdX]. A [T][16][kLdL3] and B [T][16][kLdL2] hold the
+// layer outputs (F may lie in A past [T][16][kLdL1], where layer 1 writes),
+// then the heads' scratch. PM: the split layers' copies of the peer's
+// rows. Layer 1 streams its weights through per-warp rings of 2S 1 KB
+// slots in the ring's memory. Every CTA of the cluster runs all of it,
+// whatever its windows (none may leave early).
 template <int S>
 __device__ __forceinline__ void stack_core(
     const CoreWeights& w, bf16* A, bf16* B, const bf16* F, int f_step,
-    const bf16* SG, int s_step, int T, bf16* P, bf16* M, bf16* ring, int m,
+    const bf16* SG, int s_step, int T, bf16* PM, Ring<S>& ring, int m,
     int w0, int w_valid, int n_windows, float* __restrict__ logits,
     float* __restrict__ probs) {
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const uint32_t dir = cluster_rank(), peer = dir ^ 1;
   bf16* Ap = peer_ptr(A, peer);
   bf16* Bp = peer_ptr(B, peer);
   const bf16* SGp = peer_ptr(SG, peer);
 
   // c. the Bi-LSTM layers: layer 1 on the own windows, 2-4 split
-  lstm_layer<kH1, 1, 0, 1, S>(F, kLdF, f_step, SG, kLdX, s_step, A, kLdL1,
-                              w.l1, w.b1, T, ring);
+  lstm_layer<kH1, 1, 0, 1, 2 * S>(
+      F, kLdF, f_step, SG, kLdX, s_step, A, kLdL1, w.l1, w.b1, T,
+      reinterpret_cast<bf16*>(ring.slots) + (size_t)warp * 2 * S * kTile);
+  fence_proxy_async();   // layer 1's copies and reads before the bulk fills
+  layer1_done_arrive();
   cluster_sync();
   lstm_layer_split<kH2, 2, 0, 4, S>(A, Ap, kLdL1, kG, SG, SGp, kLdX, s_step,
-                                    B, Bp, kLdL2, P, M, w.l2, w.b2, T, ring,
-                                    dir);
+                                    B, Bp, kLdL2, PM, w.b2, T, ring, dir);
   lstm_layer_split<kH3, 8, 4, 8, S>(B, Bp, kLdL2, kG, SG, SGp, kLdX, s_step,
-                                    A, Ap, kLdL3, P, M, w.l3, w.b3, T, ring,
-                                    dir);
+                                    A, Ap, kLdL3, PM, w.b3, T, ring, dir);
   lstm_layer_split<kH4, 16, 0, 4, S>(A, Ap, kLdL3, kG, SG, SGp, kLdX, s_step,
-                                     B, Bp, kLdL4, P, M, w.l4, w.b4, T, ring,
-                                     dir);
+                                     B, Bp, kLdL4, PM, w.b4, T, ring, dir);
 
   // d. the heads over the 16T (t, window) rows of layer 4's output
   const int R = kG * T;
@@ -736,11 +955,11 @@ __device__ __forceinline__ void stack_core(
   float* MO = reinterpret_cast<float*>(H2 + (size_t)R * kLdH2);  // [R][8]
   float* FE = MO + R * 8;                                     // [16][kG]
   dense_tiles<8>(B, kLdL4, T, w.d1, 128 / 8, ReluBf16{H1, kLdH1, w.d1b});
-  __syncthreads();
+  consumer_sync();
   dense_tiles<8>(H1, kLdH1, T, w.d2, 32 / 8, ReluBf16{H2, kLdH2, w.d2b});
-  __syncthreads();
+  consumer_sync();
   dense_tiles<2>(H2, kLdH2, T, w.mo, 1, MainOut{MO, w.mob});
-  __syncthreads();
+  consumer_sync();
   const int jf = tid % 16, rf = tid / 16;    // feature unit, window
   float facc = 0.0f;
   for (int t = 0; t < T; ++t) {
@@ -751,8 +970,19 @@ __device__ __forceinline__ void stack_core(
       facc = fmaf(mr[c], __bfloat162float(fwt[c * 16 + jf]), facc);
   }
   FE[jf * kG + rf] = bf16_round(fmaxf(facc + w.fb[jf], 0.0f));
-  __syncthreads();
+  consumer_sync();
   logits_out(FE, w.fow, w.fob, m, w0, w_valid, n_windows, logits, probs);
+}
+
+// The ring after the fixed part of the shared memory (`base`), its
+// barriers after its slots; thread 0 initializes them, then the block
+// meets once, the last barrier of all kThreads threads.
+template <int S>
+__device__ __forceinline__ Ring<S> ring_at(unsigned char* base) {
+  Ring<S> ring{base, smem_u32(base + (size_t)S * kFill), 0u};
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  return ring;
 }
 
 template <int S>
@@ -772,22 +1002,25 @@ stack_full_kernel(FullPair wp, const bf16* __restrict__ sig,
   bf16* S64 = B + (size_t)T * kG * kLdL2;                   // [kRows][kLdX]
   bf16* FB = S64 + kRows * kLdX;                            // [kRows][kLdF]
   float* FS = reinterpret_cast<float*>(FB + kRows * kLdF);  // [kRows][6]
-  bf16* P = reinterpret_cast<bf16*>(FS + kRows * 6);        // [16][kLdP]
-  bf16* M = P + kG * kLdP;                                  // [2][16][kLdM]
-  bf16* ring = M + 2 * kG * kLdM + (size_t)warp * S * kTile;
+  bf16* PM = reinterpret_cast<bf16*>(FS + kRows * 6);       // P, M
+  Ring<S> ring = ring_at<S>(reinterpret_cast<unsigned char*>(PM) + kPeerBytes);
+  if (warp == kConsumerWarps) {
+    stack_producer<S>(w.core, T, ring);
+    return;
+  }
   // the conv branch's scratch, in A (and B at small T) before layer 1
   bf16* X = A;                                              // [kRows][kLdX]
   bf16* Z1 = X + kRows * kLdX;                              // [kRows][kLdZ]
   bf16* Z2 = Z1 + kRows * kLdZ;                             // [kRows][kLdZ]
 
   // a. stage the rows
-  for (int e = tid; e < kRows * 8; e += kThreads) {
+  for (int e = tid; e < kRows * 8; e += kConsumers) {
     const int r = e >> 3, q = e & 7, row = w0 + r;
     bf16* dst = X + r * kLdX + q * 8;
     if (row < n_p) cp_async16(dst, sig + (size_t)row * kQP + q * 8);
     else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
-  for (int e = tid; e < kRows * 3; e += kThreads) {
+  for (int e = tid; e < kRows * 3; e += kConsumers) {
     const int r = e / 3, q = e % 3, row = w0 + r;
     float* dst = FS + r * 6 + q * 2;
     if (row < n_p) {
@@ -799,21 +1032,21 @@ stack_full_kernel(FullPair wp, const bf16* __restrict__ sig,
   }
   cp_async_commit();
   cp_async_wait<0>();
-  __syncthreads();
+  consumer_sync();
   // signal columns 50..63 are not the model's; features to bf16, k padded
-  for (int e = tid; e < kRows * (kQP - kQ); e += kThreads)
+  for (int e = tid; e < kRows * (kQP - kQ); e += kConsumers)
     X[(e / (kQP - kQ)) * kLdX + kQ + e % (kQP - kQ)] = __float2bfloat16_rn(0.0f);
-  for (int e = tid; e < kRows * 16; e += kThreads) {
+  for (int e = tid; e < kRows * 16; e += kConsumers) {
     const int r = e >> 4, k = e & 15;
     FB[r * kLdF + k] = __float2bfloat16_rn(k < 6 ? FS[r * 6 + k] : 0.0f);
   }
-  __syncthreads();
+  consumer_sync();
 
   // b. the conv branch, per row
   dense_tiles<4>(X, kLdX, 2, w.cw1, kConvNT, ReluBf16{Z1, kLdZ, w.cb1});
-  __syncthreads();
+  consumer_sync();
   dense_tiles<25>(Z1, kLdZ, 2, w.cw2, kConvNT, ReluBf16{Z2, kLdZ, w.cb2});
-  __syncthreads();
+  consumer_sync();
   {  // s64 = bf16((z2 @ cc + x @ ce) + cbias): n8 tile = warp
     float a[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
     float x[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
@@ -830,10 +1063,10 @@ stack_full_kernel(FullPair wp, const bf16* __restrict__ sig,
                  (a[i][3] + x[i][3]) + b.y);
     }
   }
-  __syncthreads();
+  consumer_sync();
 
   // c. and d.: window w's step t reads base row w + t
-  stack_core<S>(w.core, A, B, FB, 1, S64, 1, T, P, M, ring, m, w0, w_valid,
+  stack_core<S>(w.core, A, B, FB, 1, S64, 1, T, PM, ring, m, w0, w_valid,
                 n_windows, logits, probs);
 }
 
@@ -850,32 +1083,35 @@ stack_windows_kernel(CorePair wp, const float* __restrict__ feats,
   bf16* A = reinterpret_cast<bf16*>(smem_u4);              // [T][16][kLdL3]
   bf16* B = A + (size_t)T * kG * kLdL3;                     // [T][16][kLdL2]
   bf16* SG = B + (size_t)T * kG * kLdL2;                    // [T][16][kLdX]
-  bf16* P = SG + (size_t)T * kG * kLdX;                     // [16][kLdP]
-  bf16* M = P + kG * kLdP;                                  // [2][16][kLdM]
-  bf16* ring = M + 2 * kG * kLdM + (size_t)warp * S * kTile;
+  bf16* PM = SG + (size_t)T * kG * kLdX;                    // P, M
   bf16* F = A + (size_t)T * kG * kLdL1;                     // [T][16][kLdF]
+  Ring<S> ring = ring_at<S>(reinterpret_cast<unsigned char*>(PM) + kPeerBytes);
+  if (warp == kConsumerWarps) {
+    stack_producer<S>(wp.m[m], T, ring);
+    return;
+  }
 
   // the conv outputs of model m (16 float4 per (window, t), contiguous
   // over the block) and the features, as bf16 rows [t][window]
   const float4* sm =
       reinterpret_cast<const float4*>(sig + ((size_t)m * n_win + w0) * T * kQP);
-  for (int e = tid; e < kG * T * 16; e += kThreads) {
+  for (int e = tid; e < kG * T * 16; e += kConsumers) {
     const int r = e / (T * 16), t = (e >> 4) % T, q = e & 15;
     const float4 v = r < nv ? __ldg(sm + e) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     bf16* dst = SG + ((size_t)t * kG + r) * kLdX + 4 * q;
     put_bf16x2(dst, v.x, v.y);
     put_bf16x2(dst + 2, v.z, v.w);
   }
-  for (int e = tid; e < kG * T * 16; e += kThreads) {
+  for (int e = tid; e < kG * T * 16; e += kConsumers) {
     const int r = e / (T * 16), t = (e >> 4) % T, k = e & 15;
     const float v = r < nv && k < 6 ? __ldg(feats + ((size_t)(w0 + r) * T + t) * 6 + k)
                                     : 0.0f;
     F[((size_t)t * kG + r) * kLdF + k] = __float2bfloat16_rn(v);
   }
-  __syncthreads();
+  consumer_sync();
 
   // c. and d.: window w's step t reads its own row t
-  stack_core<S>(wp.m[m], A, B, F, kG, SG, kG, T, P, M, ring, m, w0, n_win,
+  stack_core<S>(wp.m[m], A, B, F, kG, SG, kG, T, PM, ring, m, w0, n_win,
                 n_win, logits, probs);
 }
 
@@ -928,8 +1164,8 @@ int active_clusters(void (*kernel)(Params...), size_t smem) {
   return n;
 }
 
-// Shared memory of each kernel at T without the rings, and the ring slots
-// per warp it takes: the most of the instantiated depths that fit (0: none)
+// Shared memory of each kernel at T without the ring, and the ring slots it
+// takes: the most of the instantiated depths that fit (0: none)
 size_t full_fixed(int T) {
   return (size_t)T * kG * (kLdL3 + kLdL2) * sizeof(bf16) +
          (size_t)kRows * (kLdX + kLdF) * sizeof(bf16) +
@@ -946,8 +1182,8 @@ int ring_slots(size_t fixed, const int (&depths)[3]) {
   return 0;
 }
 
-constexpr int kFullDepths[3] = {8, 5, 0};
-constexpr int kWindowsDepths[3] = {6, 4, 2};
+constexpr int kFullDepths[3] = {4, 3, 2};
+constexpr int kWindowsDepths[3] = {3, 2, 1};
 
 template <int S>
 int launch_full(const FullPair& wp, const bf16* sig, const float* feats,
@@ -973,34 +1209,44 @@ int launch_windows(const CorePair& wp, int n_models, const float* feats,
 // wrapper reads it for its byte counts and never chooses it.
 extern "C" int nr_stack_cluster_size() { return kCluster; }
 
-// The weight-ring slots per warp that nr_stack_windows takes at T: the most
-// of 6, 4 or 2 that fit beside the layer outputs, the staged conv outputs
-// and the peer's rows; 0 if none fits (T > 13). The wrapper asks this, so
-// the layout is decided here only.
+// The 16 KB slots of the weight ring that nr_stack_windows takes at T: the
+// most of 3, 2 or 1 that fit beside the layer outputs, the staged conv
+// outputs and the peer's rows; 0 if none fits (T > 13). The wrapper asks
+// this, so the layout is decided here only.
 extern "C" int nr_stack_windows_ring_slots(int T) {
   return T < 1 ? 0 : ring_slots(windows_fixed(T), kWindowsDepths);
 }
 
-// The same for nr_stack_full: 8 or 5 (T <= 13), 0 past that.
+// The same for nr_stack_full: 4, 3 or 2 (T <= 13), 0 past that.
 extern "C" int nr_stack_full_ring_slots(int T) {
   return T < 5 || kG + T - 1 > kRows ? 0 : ring_slots(full_fixed(T), kFullDepths);
+}
+
+// Dynamic shared memory of a launch of stack_full (kernel 0) or
+// stack_windows (kernel 1) at T, ring included (0 if T has no ring).
+extern "C" int nr_stack_smem_bytes(int kernel, int T) {
+  const int s = kernel == 0 ? nr_stack_full_ring_slots(T) : nr_stack_windows_ring_slots(T);
+  if (s == 0) return 0;
+  return (int)((kernel == 0 ? full_fixed(T) : windows_fixed(T)) + s * kRingSlot);
 }
 
 // cudaOccupancyMaxActiveClusters of stack_full (kernel 0) or stack_windows
 // (kernel 1) at T: how many clusters the card holds at once (-1 if T has
 // no ring or the query fails).
 extern "C" int nr_stack_active_clusters(int kernel, int T) {
+  const size_t smem = (size_t)nr_stack_smem_bytes(kernel, T);
   if (kernel == 0) {
     switch (nr_stack_full_ring_slots(T)) {
-      case 8: return active_clusters(stack_full_kernel<8>, full_fixed(T) + 8 * kRingSlot);
-      case 5: return active_clusters(stack_full_kernel<5>, full_fixed(T) + 5 * kRingSlot);
+      case 4: return active_clusters(stack_full_kernel<4>, smem);
+      case 3: return active_clusters(stack_full_kernel<3>, smem);
+      case 2: return active_clusters(stack_full_kernel<2>, smem);
       default: return -1;
     }
   }
   switch (nr_stack_windows_ring_slots(T)) {
-    case 6: return active_clusters(stack_windows_kernel<6>, windows_fixed(T) + 6 * kRingSlot);
-    case 4: return active_clusters(stack_windows_kernel<4>, windows_fixed(T) + 4 * kRingSlot);
-    case 2: return active_clusters(stack_windows_kernel<2>, windows_fixed(T) + 2 * kRingSlot);
+    case 3: return active_clusters(stack_windows_kernel<3>, smem);
+    case 2: return active_clusters(stack_windows_kernel<2>, smem);
+    case 1: return active_clusters(stack_windows_kernel<1>, smem);
     default: return -1;
   }
 }
@@ -1019,14 +1265,14 @@ extern "C" int nr_stack_windows(const void* const* w, int n_models,
   for (int m = 0; m < n_models; ++m)
     wp.m[m] = core_weights_of(w + m * kCoreArgs);
   switch (nr_stack_windows_ring_slots(T)) {
-    case 6:
-      return launch_windows<6>(wp, n_models, feats, sig, n_win, T, logits,
-                               probs, stream);
-    case 4:
-      return launch_windows<4>(wp, n_models, feats, sig, n_win, T, logits,
+    case 3:
+      return launch_windows<3>(wp, n_models, feats, sig, n_win, T, logits,
                                probs, stream);
     case 2:
       return launch_windows<2>(wp, n_models, feats, sig, n_win, T, logits,
+                               probs, stream);
+    case 1:
+      return launch_windows<1>(wp, n_models, feats, sig, n_win, T, logits,
                                probs, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -1055,11 +1301,14 @@ extern "C" int nr_stack_full(const void* const* w, const bf16* sig,
         (const float*)p[6], core_weights_of(p + kConvArgs)};
   }
   switch (nr_stack_full_ring_slots(T)) {
-    case 8:
-      return launch_full<8>(wp, sig, feats, n_p, T, w_valid, n_windows,
+    case 4:
+      return launch_full<4>(wp, sig, feats, n_p, T, w_valid, n_windows,
                             logits, probs, stream);
-    case 5:
-      return launch_full<5>(wp, sig, feats, n_p, T, w_valid, n_windows,
+    case 3:
+      return launch_full<3>(wp, sig, feats, n_p, T, w_valid, n_windows,
+                            logits, probs, stream);
+    case 2:
+      return launch_full<2>(wp, sig, feats, n_p, T, w_valid, n_windows,
                             logits, probs, stream);
     default:
       return (int)cudaErrorInvalidValue;

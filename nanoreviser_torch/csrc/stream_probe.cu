@@ -5,7 +5,7 @@
 // Set-up as in stack_full at T = 11: one block of 8 warps per SM (the
 // stack kernel's shared-memory footprint, passed as smem), each warp with
 // its own ring of 8 KB in shared memory. Warp w streams its own 80 KB of a
-// model's packed l3_f (the tiles layer 3's warp w takes per step), `reps`
+// model's packed l3_r (layer 3's weights, 640 KB), `reps`
 // times over, and acknowledges each 1 KB tile (each lane XORs the 32 bytes
 // it would feed to its products into a register, stored at the end).
 //
@@ -216,7 +216,7 @@ namespace {
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kTile = 1024;               // bytes of one weight tile
 constexpr int kRingBytes = 8 * kTile;     // per warp
-constexpr int kRegion = 80 * kTile;       // per warp: l3_f's 80 tiles a step
+constexpr int kRegion = 80 * kTile;       // per warp: 80 KB of l3_r
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -356,7 +356,7 @@ int launch_bulk(int cluster, int n_ctas, size_t smem, const unsigned char* src,
 }  // namespace
 
 // Bytes of the source the probe reads: 8 warps x 80 tiles (one model's
-// packed l3_f).
+// packed l3_r).
 extern "C" int nr_probe_source_bytes() { return kWarps * kRegion; }
 
 // Most clusters of `cluster` CTAs (1 block per SM at smem bytes) that can be

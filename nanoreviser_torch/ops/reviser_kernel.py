@@ -20,10 +20,12 @@ window w covers rows w..w+T-1. The function, in two plain halves:
 The kernel runs the conv branch per base row into shared memory and the
 two projections per (window, t) from there, on the tensor cores; its
 products read the weights in mma fragment order (``pack_full_weights``,
-made once per engine by ``kernel_weights``). Both kernels launch as
-clusters of ``stack_cluster_size()`` = 2 blocks that split Bi-LSTM layers
-2-4 by direction (each block streams half of their weights for both
-blocks' windows); the logits are bit-identical to the unsplit schedule's.
+made once per engine by ``kernel_weights``), Bi-LSTM layers 2-4 in the
+order a producer warp streams them into the block's ring, 16 KB a fill.
+Both kernels launch as clusters of ``stack_cluster_size()`` = 2 blocks
+that split Bi-LSTM layers 2-4 by direction (each block streams half of
+their weights for both blocks' windows); the logits are bit-identical to
+the unsplit schedule's.
 
 The pre-gathered-window entry ``stack_logits_multi`` replaces the TPU kernel
 ``_kernel`` (``nanoreviser_tpu/ops/reviser_kernel.py:251``, entries
@@ -73,14 +75,16 @@ QP = 64                             # padded row width of the gathered signal
 PAD_LOGIT_BIAS = -1e9
 
 # the kernels' fragment-packed products (pack_full_weights), per model:
-# [n8 tiles, k16 tiles, 32 lanes, 4] for a product, [directions, unit
-# groups of 8, k16 tiles of the segments, gate pairs (i f | c o), 32 lanes,
-# 2 gates x 4] for the gate product of an LSTM layer
+# [n8 tiles, k16 tiles, 32 lanes, 4] for a product; for the gate product of
+# Bi-LSTM layer 1 [directions, unit groups of 8, k16 tiles of the
+# segments, gate pairs (i f | c o), 32 lanes, 2 gates x 4], for layers 2-4
+# the same tiles as the ring's 16 KB fills [directions, fills a step, 8
+# warps, 2 tiles, gate pairs, 32 lanes, 2 gates x 4]
 FULL_SHAPES = {
     "cw1_f": (50, 4, 32, 4), "cw2_f": (50, 25, 32, 4),
     "cc_f": (8, 25, 32, 4), "ce_f": (8, 4, 32, 4),
-    "l1_f": (2, H1 // 8, 2, 2, 32, 8), "l2_f": (2, H2 // 8, 6, 2, 32, 8),
-    "l3_f": (2, H3 // 8, 20, 2, 32, 8), "l4_f": (2, H4 // 8, 20, 2, 32, 8),
+    "l1_f": (2, H1 // 8, 2, 2, 32, 8), "l2_r": (2, 3, 8, 2, 2, 32, 8),
+    "l3_r": (2, 20, 8, 2, 2, 32, 8), "l4_r": (2, 10, 8, 2, 2, 32, 8),
     "d1_f": (16, 8, 32, 4), "d2_f": (4, 8, 32, 4), "mo_f": (1, 2, 32, 4),
 }
 # matrices go to the kernels in bf16, biases in f32
@@ -91,7 +95,7 @@ MATRICES = ("cw1", "cw2", "cc", "ce", "wi1", "wi3s", "wh1", "wi2", "wh2",
 # the stack core's weights (all that nr_stack_windows reads), and before
 # them the conv branch's for nr_stack_full
 CONV_ORDER = ("cw1_f", "cb1", "cw2_f", "cb2", "cc_f", "ce_f", "cbias")
-CORE_ORDER = ("l1_f", "b1", "l2_f", "b2", "l3_f", "b3", "l4_f", "b4",
+CORE_ORDER = ("l1_f", "b1", "l2_r", "b2", "l3_r", "b3", "l4_r", "b4",
               "d1_f", "d1b", "d2_f", "d2b", "mo_f", "mob",
               "fw", "fb", "fow", "fob")
 FULL_ORDER = CONV_ORDER + CORE_ORDER
@@ -267,6 +271,17 @@ def _gate_fragments(segments, hidden: int) -> np.ndarray:
     return np.stack(groups)
 
 
+def ring_fills(tiles: np.ndarray) -> np.ndarray:
+    """A split layer's gate tiles of one direction ([H/8 groups, tiles, 2,
+    32, 8], ``_gate_fragments``) in the order of the ring's fills: [fills,
+    8 warps, 2, 2, 32, 8], warp w's two tiles of fill f being tiles 2f and
+    2f + 1 of its groups' tiles in turn (groups wQ .. wQ + Q - 1, Q = H /
+    64)."""
+    if tiles.shape[0] % 8:
+        raise ValueError(f"{tiles.shape[0]} unit groups do not split over 8 warps")
+    return tiles.reshape(8, -1, 2, 2, 32, 8).transpose(1, 0, 2, 3, 4, 5)
+
+
 def pack_full_weights(ws: dict) -> dict:
     """The kernels' fragment-packed products (``FULL_SHAPES``, stacked
     over the models, f32) from the stacked row-major weights (numpy or
@@ -274,7 +289,8 @@ def pack_full_weights(ws: dict) -> dict:
     to bf16 before or after packing gives the same bits. Each LSTM layer's
     gate product per direction: its input segments, then wh -- layer 1 (the
     features, 6 -> 16 padded) and layer 3 ([l2 | s64]) read the direction's
-    slice of the side-by-side ``wi1`` / ``wi3s``."""
+    slice of the side-by-side ``wi1`` / ``wi3s``; layers 2-4 in the
+    order of the ring's fills (``ring_fills``)."""
     w = {k: (v.float().cpu().numpy() if torch.is_tensor(v)
              else np.asarray(v, np.float32))
          for k, v in ws.items() if k in _ROW_MAJOR}
@@ -287,14 +303,15 @@ def pack_full_weights(ws: dict) -> dict:
         segs = {
             "l1_f": (H1, lambda d: (g["wi1"][:, 4 * H1 * d : 4 * H1 * (d + 1)],
                                     g["wh1"][d])),
-            "l2_f": (H2, lambda d: (g["wi2"][d], g["wh2"][d])),
-            "l3_f": (H3, lambda d: (g["wi3"][d],
+            "l2_r": (H2, lambda d: (g["wi2"][d], g["wh2"][d])),
+            "l3_r": (H3, lambda d: (g["wi3"][d],
                                     g["wi3s"][:, 4 * H3 * d : 4 * H3 * (d + 1)],
                                     g["wh3"][d])),
-            "l4_f": (H4, lambda d: (g["wi4"][d], g["wh4"][d])),
+            "l4_r": (H4, lambda d: (g["wi4"][d], g["wh4"][d])),
         }
         for k, (hidden, seg) in segs.items():
-            out[k] = np.stack([_gate_fragments(seg(d), hidden) for d in (0, 1)])
+            order = (lambda x: x) if k == "l1_f" else ring_fills
+            out[k] = np.stack([order(_gate_fragments(seg(d), hidden)) for d in (0, 1)])
         per_model.append(out)
     packed = stack_models(per_model)
     for k, shape in FULL_SHAPES.items():
@@ -584,7 +601,7 @@ def stack_windows_fetch_bytes(t_len: int, cluster: int = 1) -> dict:
         raise ValueError(f"cluster must be >= 1, got {cluster}")
     nbytes = lambda k: 2 * math.prod(FULL_SHAPES[k])
     bias = lambda h: 4 * 2 * 4 * h
-    split = sum(nbytes(k) for k in ("l2_f", "l3_f", "l4_f")) + bias(H2 + H3 + H4)
+    split = sum(nbytes(k) for k in ("l2_r", "l3_r", "l4_r")) + bias(H2 + H3 + H4)
     if split % cluster:
         raise ValueError(f"layers 2-4 do not split over {cluster} CTAs")
     lstm = nbytes("l1_f") + bias(H1) + split // cluster
@@ -625,11 +642,19 @@ def stack_active_clusters(kernel: str, t_len: int) -> int:
 
 
 def windows_ring_slots(t_len: int) -> int:
-    """Weight-ring slots per warp that ``stack_windows`` takes at T, as the
-    kernel's library decides them (``nr_stack_windows_ring_slots``, beside
-    the shared-memory layout it depends on); 0 where no ring fits. Loads,
-    and if needed builds, the library."""
+    """16 KB slots of the weight ring that ``stack_windows`` takes at T, as
+    the kernel's library decides them (``nr_stack_windows_ring_slots``,
+    beside the shared-memory layout it depends on); 0 where no ring fits.
+    Loads, and if needed builds, the library."""
     return int(_stack_lib().nr_stack_windows_ring_slots(build.c_int(t_len)))
+
+
+def stack_smem_bytes(kernel: str, t_len: int) -> int:
+    """Dynamic shared memory of a ``stack_full`` or ``stack_windows`` launch
+    at T, its weight ring included (``nr_stack_smem_bytes``; 0 where no ring
+    fits)."""
+    which = {"stack_full": 0, "stack_windows": 1}[kernel]
+    return int(_stack_lib().nr_stack_smem_bytes(build.c_int(which), build.c_int(t_len)))
 
 
 def stack_logits_multi(ws: dict, feats: torch.Tensor, sig_outs: torch.Tensor,

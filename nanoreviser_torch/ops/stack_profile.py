@@ -6,11 +6,14 @@ the end of staging and the conv branch, of each Bi-LSTM layer and of the
 heads, and in the split layers the cycles of each step's copy of the
 peer's rows and of its products), builds that copy with nvcc, launches it on
 a full-tier batch at T = 11 from seeded random weights, and prints the mean
-microseconds per block of each phase at the SM clock that nvidia-smi reports.
-Two variants test what bounds the split layers: ``NO_MMA`` replaces each
-``mma.sync`` by four dependent f32 adds, ``NO_STREAM`` stops the weight
-stream after its first ring fill (the products then read stale tiles). Their
-results are wrong by design; only their times count.
+microseconds per block of each phase at the SM clock that nvidia-smi
+reports, and each split layer's weight stream in bytes per SM clock (the
+ring's fills of the layer over its time). Two variants test what bounds
+the split layers: ``NO_MMA`` replaces each ``mma.sync`` by four dependent
+f32 adds, ``NO_STREAM`` stops the weight streams after their first fills
+(layer 1's ring and the producer's, whose later fills complete at once
+with the tiles already there). Their results are wrong by design; only
+their times count.
 
     python -m nanoreviser_torch.ops.stack_profile [--windows N]
 """
@@ -20,24 +23,28 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import subprocess
 import sys
 
 from . import build
 
 # (phase, first mark, last mark); marks 8 and 9 accumulate the split layers'
-# copy and product cycles per block
+# copy and product cycles per block, 11-14 the products' parts
 PHASES = (("stage+conv", 0, 1), ("layer 1", 1, 10), ("layer 1 cluster barrier", 10, 2),
           ("layer 2", 2, 3), ("layer 3", 3, 4), ("layer 4", 4, 5),
           ("heads", 5, 6), ("total", 0, 6))
 VARIANTS = ("", "NO_MMA", "NO_STREAM")
-N_MARKS = 12
+N_MARKS = 16
+PARTS = ((8, "copies of the peer's rows"), (9, "products and gates"),
+         (11, "x chains and biases"), (12, "s chains"), (13, "h chains"),
+         (14, "gates and stores"))
 
 _PROLOGUE = """__device__ long long* g_prof = nullptr;
 extern "C" int nr_set_prof(long long* p) {
   return (int)cudaMemcpyToSymbol(g_prof, &p, sizeof(p));
 }
-#define PROF_AT(k) g_prof[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 12 + (k)]
+#define PROF_AT(k) g_prof[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 16 + (k)]
 #define PROF_MARK(k) do { if (threadIdx.x == 0 && g_prof) PROF_AT(k) = clock64(); } while (0)
 #define PROF_ADD(k, v) do { if (threadIdx.x == 0 && g_prof) PROF_AT(k) += (v); } while (0)
 """
@@ -57,27 +64,37 @@ _PATCHES = (
      _NO_MMA, ""),
     ("  __device__ __forceinline__ void request() {\n", "",
      "#ifdef NO_STREAM\n    if (requested >= S - 1) total = 0;\n#endif\n"),
+    ("      if (k > 0) mbar_wait(bars + 8 * (S + s), (k - 1) & 1);\n", "",
+     "#ifdef NO_STREAM\n      if (k > 0) {\n        mbar_arrive(full);\n        ++n;\n"
+     "        return;\n      }\n#endif\n"),
     ("    const int tp = st == 0 ? t : (dir ? t + 1 : t - 1);\n    for (int e = tid;",
      "    const long long c0 = clock64();\n", ""),
-    ("      reinterpret_cast<uint4*>(P + r * kLdP)[q] = *src;\n    }\n    __syncthreads();\n",
+    ("      reinterpret_cast<uint4*>(P + r * LDP)[q] = *src;\n    }\n    consumer_sync();\n",
      "", "    const long long c1 = clock64();\n    PROF_ADD(8, c1 - c0);\n"),
     ("          put_bf16x2(out_peer + o + 8 * out_ld, hv[2], hv[3]);\n"
-     "        }\n      }\n    }\n    __syncthreads();\n", "",
+     "        }\n      }\n    }\n    consumer_sync();\n", "",
      "    PROF_ADD(9, clock64() - c1);\n"),
-    ("  lstm_layer<kH1, 1, 0, 1, S>(F, kLdF, f_step, SG, kLdX, s_step, A, kLdL1,\n",
-     "  PROF_MARK(1);\n", ""),
-    ("                              w.l1, w.b1, T, ring);\n  cluster_sync();\n",
-     "", "  PROF_MARK(2);\n"),
-    ("w.l2, w.b2, T, ring,\n                                    dir);\n", "",
-     "  PROF_MARK(3);\n"),
-    ("w.l3, w.b3, T, ring,\n                                    dir);\n", "",
-     "  PROF_MARK(4);\n"),
-    ("w.l4, w.b4, T, ring,\n                                     dir);\n", "",
-     "  PROF_MARK(5);\n"),
+    ("  lstm_layer<kH1, 1, 0, 1, 2 * S>(\n", "  PROF_MARK(1);\n", ""),
+    ("  fence_proxy_async();   // layer 1's copies and reads before the bulk fills\n",
+     "  PROF_MARK(10);\n", ""),
+    ("  layer1_done_arrive();\n  cluster_sync();\n", "", "  PROF_MARK(2);\n"),
+    ("PM, w.b2, T, ring, dir);\n", "", "  PROF_MARK(3);\n"),
+    ("PM, w.b3, T, ring, dir);\n", "", "  PROF_MARK(4);\n"),
+    ("PM, w.b4, T, ring, dir);\n", "", "  PROF_MARK(5);\n"),
     ("  logits_out(FE, w.fow, w.fob, m, w0, w_valid, n_windows, logits, probs);\n",
      "", "  PROF_MARK(6);\n"),
     ("  const FullWeights& w = wp.m[m];\n  const int w0 = blockIdx.x * kG;\n", "",
-     "  PROF_MARK(0);\n  if (threadIdx.x == 0 && g_prof) PROF_AT(8) = PROF_AT(9) = 0;\n"),
+     "  PROF_MARK(0);\n  if (threadIdx.x == 0 && g_prof)\n"
+     "    PROF_AT(8) = PROF_AT(9) = PROF_AT(11) = PROF_AT(12) = PROF_AT(13) = PROF_AT(14) = 0;\n"),
+    ("      zero_acc(acc);\n      gate_chain<KX>(xa, pa, false, ring, acc);\n",
+     "      const long long q0 = clock64();\n", ""),
+    ("      if constexpr (KS > 0) {\n        zero_acc(part);\n",
+     "      const long long q1 = clock64();\n      PROF_ADD(11, q1 - q0);\n", ""),
+    ("      zero_acc(part);\n      gate_chain<KH>(ha, ma, st == 0, ring, part);\n",
+     "      const long long q2 = clock64();\n      PROF_ADD(12, q2 - q1);\n",
+     "      const long long q3 = clock64();\n      PROF_ADD(13, q3 - q2);\n"),
+    ("          put_bf16x2(out_peer + o + 8 * out_ld, hv[2], hv[3]);\n        }\n      }\n",
+     "", "      PROF_ADD(14, clock64() - q3);\n"),
 )
 
 
@@ -88,10 +105,7 @@ def instrumented_source(text: str) -> str:
         if text.count(anchor) != 1:
             raise ValueError(f"stack_profile: anchor not found once: {anchor[:60]!r}")
         text = text.replace(anchor, before + anchor + after)
-    # layer 1 ends before its cluster barrier (mark 10)
-    return text.replace("                              w.l1, w.b1, T, ring);\n  cluster_sync();\n",
-                        "                              w.l1, w.b1, T, ring);\n  PROF_MARK(10);\n"
-                        "  cluster_sync();\n")
+    return text
 
 
 def _sm_mhz() -> float:
@@ -185,8 +199,11 @@ def main(argv=None) -> int:
         row = {"ms": start.elapsed_time(end), "sm_mhz": mhz}
         for name, a, b in PHASES:
             row[name] = float((marks[:, b] - marks[:, a]).mean())
-        row["split layers: copies of the peer's rows"] = float(marks[:, 8].mean())
-        row["split layers: products and gates"] = float(marks[:, 9].mean())
+        for k, what in PARTS:
+            row[f"split layers: {what}"] = float(marks[:, k].mean())
+        for layer, key in (("layer 2", "l2_r"), ("layer 3", "l3_r"), ("layer 4", "l4_r")):
+            fill_bytes = math.prod(rk.FULL_SHAPES[key][1:]) * 2   # a direction's step
+            row[f"{layer}: weight stream B/clk"] = t * fill_bytes / (row[layer] * mhz)
         report["variants"][v or "kernel"] = row
     print(json.dumps(report))
     return 0

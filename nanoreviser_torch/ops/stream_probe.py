@@ -2,7 +2,7 @@
 
 The probe is a measurement, not a port of a TPU kernel: at one block per SM
 with the stack kernel's shared-memory footprint, every warp streams its 80
-KB of a model's packed ``l3_f`` through a ring of 8 KB in shared memory
+KB of a model's packed ``l3_r`` through a ring of 8 KB in shared memory
 ``reps`` times over, by per-lane ``cp.async`` (variant 0, as the stack's
 ``WeightStream`` did), by one bulk copy per fill (variant 1) or by bulk
 copies multicast over a cluster (variant 2). ``chip_smoke.py``'s probe
@@ -27,7 +27,7 @@ def _lib():
 
 
 def source_bytes() -> int:
-    """Bytes of the source the probe streams (one model's ``l3_f``)."""
+    """Bytes of the source the probe streams (one model's ``l3_r``)."""
     return int(_lib().nr_probe_source_bytes())
 
 

@@ -163,7 +163,7 @@ def test_windows_kernel_single_model_and_ragged_batches():
         assert torch.equal(one, both[0])
         assert float((both[:, :, :5] - plain[:, :, :5]).abs().max()) <= 0.05
     # the kernel reads the packed weights only, and has no ring for T > 13
-    assert [rk.windows_ring_slots(t) for t in (11, 13, 14)] == [6, 2, 0]
+    assert [rk.windows_ring_slots(t) for t in (11, 13, 14)] == [3, 1, 0]
     with pytest.raises(ValueError, match="kernel_weights"):
         rk.stack_logits_multi(rk.weights_to_device(_weights(8), dev), feats, sig,
                               t_len=11)

@@ -13,7 +13,8 @@ package (CPU; g++ builds the host library, h5py writes the files).
   UTF-8 ``version``); legacy files (no ``version``, ``"0.0"``) with event
   times in seconds and ``start_time`` as u8 and f8; ``"0.0-rc.5"``, which
   the Python rule reads as not legacy (the JAX C++ reads it as legacy, fails
-  on the signal length and falls back to h5py); an Albacore-like Events
+  on the signal length and falls back to h5py, so there the JAX reference
+  is its h5py path, and the test checks that it does fall back); an Albacore-like Events
   dtype (f8 mean/stdv, u8 start/length, extra members, move-2 events).
   On the two files in legacy seconds the JAX reference is its h5py decode
   path (``compact_read(get_read_data(p))`` of the JAX package): the JAX
@@ -25,6 +26,14 @@ package (CPU; g++ builds the host library, h5py writes the files).
   with f8 means the f16 features of columns 4-5 may differ from it by the
   double rounding f8 -> f4 -> f16 that the JAX package's native path shares
   (counted and printed, not asserted zero).
+* The JAX package's library is loaded from a complete file: the JAX package
+  builds ``libnanorev.so`` lazily and in place, so a test worker that loads
+  it while another writes it fails, and its loader gives up for the life of
+  the process; ``compact_fast5`` then takes its h5py path, whose features
+  differ by one f16 ULP on f8 event moments. The ``jax_native`` fixture
+  compiles the same source with the same flags into a private directory
+  unless this process already holds the library, and every JAX
+  ``compact_fast5`` that must be native fails loudly if it falls back.
 * Bad reads fail with the Python path's ``Fast5Error`` text and count no
   fallback; the library's return code names the reason. A too-small ``out``
   is retried once. Seeded truncations and byte flips never crash or hang
@@ -44,6 +53,8 @@ import numpy as np
 import pytest
 
 import nanoreviser_tpu.io as jio
+import nanoreviser_tpu.native as jnative
+import nanoreviser_tpu.native.build as jbuild
 import nanoreviser_tpu.signal.host_prep as jprep
 from nanoreviser_torch import native
 from nanoreviser_torch.infer.hostpipe import PrepPool
@@ -162,8 +173,43 @@ def _assert_same(a, b, what):
             assert x == y, (what, k)
 
 
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native fast5 path, loaded from a complete library.
+    Unless this process's JAX loader already holds the library, compiles
+    ``nanorev.cpp`` with the JAX package's own flags into a private
+    directory (the same bytes as its in-place build), points the loader at
+    it and clears its state, so a failed load of a half-written in-place
+    file cannot leave the loader given up. Restores the loader at the end."""
+    saved = (jnative.LIB_PATH, jnative._LIB, jnative._TRIED, jnative._HDF5_OK)
+    if jnative._LIB is None:
+        lib = tmp_path_factory.mktemp("jax_native") / "libnanorev.so"
+        subprocess.run(["g++", *jbuild.CXXFLAGS, jbuild.SRC, "-o", str(lib)],
+                       check=True, capture_output=True, text=True)
+        jnative.LIB_PATH = str(lib)
+        jnative._LIB, jnative._TRIED, jnative._HDF5_OK = None, False, None
+    if not jnative.hdf5_available():
+        pytest.fail("the JAX package's native fast5 path is unavailable "
+                    f"(library {jnative.LIB_PATH}, loaded: {jnative._LIB is not None})")
+    yield
+    jnative.LIB_PATH, jnative._LIB, jnative._TRIED, jnative._HDF5_OK = saved
+
+
+def _jax_compact_fast5_native(p, case, monkeypatch):
+    """The JAX package's ``compact_fast5(p)``, failing if it falls back to
+    its h5py path (``compact_read(get_read_data(p))``)."""
+    def h5py_path(*args, **kwargs):
+        raise AssertionError(
+            f"{case}: the JAX package's compact_fast5 fell back to its h5py "
+            f"path; the bit-for-bit comparison needs its native path")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(jprep, "compact_read", h5py_path)
+        return jprep.compact_fast5(p)
+
+
 @pytest.mark.parametrize("case", CASES)
-def test_ingest_parity(files, case):
+def test_ingest_parity(files, jax_native, monkeypatch, case):
     p = files[case]
     fb = host_prep.native_fallbacks()
     got = host_prep.compact_fast5(p)
@@ -171,16 +217,24 @@ def test_ingest_parity(files, case):
     rd = get_read_data(p)
     assert got.n_bases == rd.n_bases > 1000
     _assert_same(got, host_prep.compact_read(rd), "compact_read(get_read_data)")
-    jax_native = jprep.compact_fast5(p)
-    if case in LEGACY_SECONDS:
+    if case == "version_0.0-rc.5":
+        # the JAX C++ refuses this file; its compact_fast5 is its h5py path
+        with pytest.raises(AssertionError, match="fell back"):
+            _jax_compact_fast5_native(p, case, monkeypatch)
+        _assert_same(got, jprep.compact_fast5(p), "JAX compact_fast5 (h5py path)")
+        _assert_same(got, jprep.compact_read(jio.get_read_data(p)),
+                     "JAX compact_read(get_read_data)")
+    elif case in LEGACY_SECONDS:
+        jax_c = _jax_compact_fast5_native(p, case, monkeypatch)
         jax_py = jprep.compact_read(jio.get_read_data(p))
         _assert_same(got, jax_py, "JAX compact_read(get_read_data)")
-        n = min(jax_native.n_bases, jax_py.n_bases)
-        print(f"{case}: JAX compact_fast5 has {jax_native.n_bases} bases against "
+        n = min(jax_c.n_bases, jax_py.n_bases)
+        print(f"{case}: JAX compact_fast5 has {jax_c.n_bases} bases against "
               f"{jax_py.n_bases} on its h5py path, and "
-              f"{int((jax_native.pos0[:n] != jax_py.pos0[:n]).sum())} pos0 differ")
+              f"{int((jax_c.pos0[:n] != jax_py.pos0[:n]).sum())} pos0 differ")
     else:
-        _assert_same(got, jax_native, "JAX compact_fast5")
+        _assert_same(got, _jax_compact_fast5_native(p, case, monkeypatch),
+                     "JAX compact_fast5")
     ref = host_prep.compact_read_numpy(rd)
     if rd.ab_mean.dtype == np.float32:
         _assert_same(got, ref, "compact_read_numpy")

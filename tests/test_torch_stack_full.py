@@ -6,16 +6,25 @@ bf16 plain chain there (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 Here, with no card:
 
 * a plain-torch emulation of the kernel's addressing -- the offsets at which
-  ``tile_mma`` and ``WeightStream`` read a lane's B-fragment registers, and
-  the mma.m16n8k16 register layout they feed -- reads every row-major
-  matrix back from ``pack_full_weights`` bit for bit, for both models at
-  T = 11 and 13, with zeros in the padding;
+  ``tile_mma`` and ``WeightStream`` (layer 1) read a lane's B-fragment
+  registers, the ring's 16 KB fills of layers 2-4 and the two tiles a warp
+  takes of each (``Ring::take``), and the mma.m16n8k16 register layout
+  they feed -- reads every row-major matrix back from
+  ``pack_full_weights`` bit for bit, for both models at T = 11 and 13, with
+  zeros in the padding;
 * products assembled from those fragments lane by lane, as the tensor cores
   combine them, equal the row-major products;
 * the engine's kernel weights leave the CPU path unchanged: with the packed
   products present, ``stack_logits_full`` on CPU tensors is still the bf16
-  plain chain and launches no kernel.
+  plain chain and launches no kernel;
+* the product probe's operands (``ops/mma_probe.py``): its ``wgmma`` A
+  tiles (``wgmma_a_tiles`` over ``gate_rows``) and core-matrix
+  activations, read back as the descriptors address them, and its
+  ``mma.sync`` fragments, multiplied as the kernels' outputs are mapped,
+  give the probe's f64 reference.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -29,11 +38,12 @@ from nanoreviser_torch.ops import reviser_kernel as rk
 TILE = 512          # bf16 of one streamed LSTM weight tile (kTile)
 LAYERS = {          # key: (hidden, segments of the gate product per direction)
     "l1_f": (rk.H1, lambda w, d: [w["wi1"][:, 64 * d : 64 * d + 64], w["wh1"][d]]),
-    "l2_f": (rk.H2, lambda w, d: [w["wi2"][d], w["wh2"][d]]),
-    "l3_f": (rk.H3, lambda w, d: [w["wi3"][d], w["wi3s"][:, 512 * d : 512 * d + 512],
+    "l2_r": (rk.H2, lambda w, d: [w["wi2"][d], w["wh2"][d]]),
+    "l3_r": (rk.H3, lambda w, d: [w["wi3"][d], w["wi3s"][:, 512 * d : 512 * d + 512],
                                   w["wh3"][d]]),
-    "l4_f": (rk.H4, lambda w, d: [w["wi4"][d], w["wh4"][d]]),
+    "l4_r": (rk.H4, lambda w, d: [w["wi4"][d], w["wh4"][d]]),
 }
+FILL = 8192         # bf16 of one ring fill (kFill): 8 warps x 2 tiles
 DENSE = {"cw1_f": "cw1", "cw2_f": "cw2", "cc_f": "cc", "ce_f": "ce",
          "d1_f": "d1w", "d2_f": "d2w", "mo_f": "mow"}
 
@@ -66,12 +76,27 @@ def _read_dense(flat, n_nt, n_kt):
     return out
 
 
-def _read_gates(flat, hidden, seg_k, d):
-    """Each segment [16 kt_s, 4H] of direction d as lstm_layer's stream reads
-    it: tile (q*TILES + seg offset + kt) of warp u0's sequence at
-    wpack + (d*G + u0)*TILES*kTile, the lane's two 8-bf16 pieces at lane*8
-    and kTile/2 + lane*8, gate g's registers b[2g], b[2g+1] at piece g / 2,
-    elements 4(g % 2) .. +3."""
+def _tile_at(u, tau, d, hidden, tiles, ring):
+    """The offset of group u's tile tau (of the concatenated segments) of
+    direction d: layer 1 at wpack + ((d*G + u)*TILES + tau)*kTile, as
+    lstm_layer's stream reads it; in the ring's order (layers 2-4) the tile
+    t of warp w in fill f at wpack + ((d*NF + f)*8 + w)*2*kTile + t*kTile,
+    as Ring::take hands it to the warp: warp w = u // Q runs its Q = H/64
+    groups in turn, so the tile is number (u % Q)*TILES + tau of its
+    sequence, two a fill."""
+    if not ring:
+        return ((d * (hidden // 8) + u) * tiles + tau) * TILE
+    q = hidden // 64
+    nf = q * tiles // 2
+    w, seq = u // q, (u % q) * tiles + tau
+    return (d * nf + seq // 2) * FILL + (w * 2 + seq % 2) * TILE
+
+
+def _read_gates(flat, hidden, seg_k, d, ring):
+    """Each segment [16 kt_s, 4H] of direction d as the kernel reads it:
+    tile (seg offset + kt) of group u at ``_tile_at``, the lane's two 8-bf16
+    pieces at lane*8 and kTile/2 + lane*8, gate g's registers b[2g],
+    b[2g+1] at piece g / 2, elements 4(g % 2) .. +3."""
     groups = hidden // 8
     tiles = sum(seg_k)
     outs, t0 = [], 0
@@ -79,7 +104,7 @@ def _read_gates(flat, hidden, seg_k, d):
         u, kt, lane, g, j = torch.meshgrid(
             torch.arange(groups), torch.arange(n_kt), torch.arange(32),
             torch.arange(4), torch.arange(4), indexing="ij")
-        off = (((d * groups + u) * tiles + t0 + kt) * TILE + (g // 2) * TILE // 2
+        off = (_tile_at(u, t0 + kt, d, hidden, tiles, ring) + (g // 2) * TILE // 2
                + lane * 8 + 4 * (g % 2) + j)
         out = torch.full((16 * n_kt, 4 * hidden), float("nan"))
         out[16 * kt + _lane_k(lane, j), g * hidden + 8 * u + lane // 4] = flat[off]
@@ -113,8 +138,11 @@ def test_packed_fragments_read_back_row_major(t):
             for d in (0, 1):
                 segs = segments(w, d)
                 seg_k = [-(-s.shape[0] // 16) for s in segs]
-                assert sum(seg_k) == rk.FULL_SHAPES[key][2]
-                for read, want in zip(_read_gates(flat, hidden, seg_k, d), segs):
+                ring = key != "l1_f"
+                n_tiles = (2 * math.prod(rk.FULL_SHAPES[key][1:3]) // (hidden // 8)
+                           if ring else rk.FULL_SHAPES[key][2])
+                assert sum(seg_k) == n_tiles
+                for read, want in zip(_read_gates(flat, hidden, seg_k, d, ring), segs):
                     _same_bits(read, want)
 
 
@@ -155,12 +183,13 @@ def test_fragment_products_equal_row_major_products():
     nt = 3
     got = sum(_mma(x[:, 16 * kt : 16 * kt + 16], frags[nt, kt]) for kt in range(25))
     torch.testing.assert_close(got, x @ w[:, 8 * nt : 8 * nt + 8], rtol=1e-5, atol=1e-4)
-    # layer 3's gate product, backward direction, unit group 5: the segments
-    # [l2 | s64 | h] against wi3, wi3s's slice and wh3; gate g's tile of the
-    # stream is columns g*128 + 40 .. 47
+    # layer 3's gate product, backward direction, unit group 5 (warp 2's
+    # second group: fills 10-19 of a step): the segments [l2 | s64 | h]
+    # against wi3, wi3s's slice and wh3; gate g's tile is columns g*128 + 40
+    # .. 47
     d, u, hidden = 1, 5, rk.H3
-    packed = ws["l3_f"][0].float()[d, u]              # [20 tiles, 2, 32, 8]
-    segs = LAYERS["l3_f"][1]({k: v[0].float() for k, v in ws.items()}, d)
+    packed = ws["l3_r"][0].float()[d, 10:, u // 2].reshape(20, 2, 32, 8)
+    segs = LAYERS["l3_r"][1]({k: v[0].float() for k, v in ws.items()}, d)
     x = torch.tensor(rng.normal(0, 1, (16, 320))).float().to(torch.bfloat16).float()
     want = x @ torch.cat(segs)
     for g in range(4):
@@ -214,10 +243,18 @@ def test_fetch_bytes_by_cluster_from_packed_shapes(t, cluster):
     once per pair of m16 tiles, the feature and final weights once, the
     conv products and biases once (stack_full); the L2 serves what the SM
     receives (no multicast); per step of layers 2-4 the x|s rows of the
-    cluster - 1 peer blocks and the share of h the peers compute."""
+    cluster - 1 peer blocks and the share of h the peers compute. Layers
+    2-4 reach a block of the pair as the ring's 16 KB fills: a step of
+    direction d is fills (d, 0 ..), each two 1 KB tiles of 8 warps, 3 / 20
+    / 10 of them."""
     ws = _kernel_weights(t)
     b = lambda *keys: sum(ws[k][0].numel() * ws[k][0].element_size() for k in keys)
-    split = b("l2_f", "l3_f", "l4_f", "b2", "b3", "b4")
+    split = b("l2_r", "l3_r", "l4_r", "b2", "b3", "b4")
+    fills = {k: ws[k][0].shape[1] for k in ("l2_r", "l3_r", "l4_r")}
+    assert fills == {"l2_r": 3, "l3_r": 20, "l4_r": 10}
+    for k, n in fills.items():
+        assert ws[k][0].shape[2:4] == (8, 2)           # 8 warps x 2 tiles a fill
+        assert b(k) == 2 * n * 2 * FILL                 # 2 directions, 16 KB a fill
     core = (t * (b("l1_f", "b1") + split // cluster)
             + b("d1_f", "d2_f", "mo_f") * -(-t // 2)
             + b("d1b", "d2b", "mob", "fw", "fb", "fow", "fob"))
@@ -257,7 +294,7 @@ def test_stack_profile_instruments_the_kernel_source():
     assert all(ln in out for ln in src.splitlines())
     with pytest.raises(ValueError, match="anchor"):
         stack_profile.instrumented_source(src.replace("PROF", "").replace(
-            "  lstm_layer<kH1, 1, 0, 1, S>", "  lstm_layer<kH1, 1, 0, 1,  S>"))
+            "  lstm_layer<kH1, 1, 0, 1, 2 * S>(", "  lstm_layer<kH1, 1, 0, 1,  2 * S>("))
 
 
 def test_stream_probe_acknowledged_words():
@@ -278,3 +315,39 @@ def test_stream_probe_acknowledged_words():
                 for k in range(4):
                     want ^= int(words[base + half * 128 + lane * 4 + k]) & 0xFFFFFFFF
         assert int(got[w * 32 + lane]) & 0xFFFFFFFF == want
+
+
+def test_mma_probe_operands_read_back_as_the_kernels_address_them():
+    """The product probe's packing (ops/mma_probe.py), emulated as its
+    kernels read it: each wgmma A tile through its descriptor (core
+    matrices of 8 rows x 16 bytes, the row groups 128 bytes apart, the k
+    halves 1024), the activations through theirs ([k/8][32][8]: rows 16
+    bytes apart, k halves 512), m tile 2u + p's rows mapped to gate 2p + h
+    of unit 32u + 8w + j as probe_wgmma stores them; and the mma.sync
+    fragments as probe_mma_sync reads them (warp w's groups 2w, 2w + 1).
+    Both equal the f64 reference exactly."""
+    from nanoreviser_torch.ops import mma_probe as mp
+
+    w, x = mp.operands(11)
+    ref = mp.reference(w, x)
+    pk = mp.packed(w, x)
+    a_tiles = pk["wgmma_w"].double().numpy()             # [RES, 8, 1024]
+    xc = pk["wgmma_x"].double().numpy().reshape(-1)      # [40 * 32 * 8]
+    r, k = np.arange(64)[:, None], np.arange(16)[None, :]
+    a_pos = ((k // 8) * 8 + r // 8) * 64 + (r % 8) * 8 + k % 8
+    n = np.arange(32)[None, :]
+    got = np.zeros((mp.COLS, mp.WINDOWS))
+    for mt in range(8):
+        d = sum(a_tiles[kt % mp.RES, mt][a_pos]
+                @ xc[kt * 2 * 256 + (k.T // 8) * 256 + n * 8 + k.T % 8]
+                for kt in range(mp.K_TILES))
+        rho = np.arange(64)
+        gate = 2 * (mt % 2) + (rho % 16) // 8
+        unit = 32 * (mt // 2) + 8 * (rho // 16) + rho % 8
+        got[gate * 128 + unit] = d
+        assert np.array_equal(mp.gate_rows(128)[mt], gate * 128 + unit)
+    assert np.array_equal(got, ref)
+    # the mma.sync fragments: group u = 2 warp + q, tile kt % RES
+    frags = pk["mma_w"].float().reshape(-1)
+    fr = _read_gates(frags, mp.HIDDEN, [mp.RES], 0, ring=False)[0]   # [16 RES, 512]
+    assert torch.equal(fr, torch.tensor(w))

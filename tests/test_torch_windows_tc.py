@@ -15,24 +15,31 @@ card:
 * a plain-torch emulation of the kernel's schedule -- the block's shared
   memory as one flat NaN-filled buffer per block of 16 windows, the staging
   into the [t][window][ld] layouts (the features in buffer A past layer 1's
-  output), the gate products from the packed ``l*_f`` tiles as
-  ``WeightStream`` hands them out of an S-slot ring (S = 4 here; the depth
-  the kernel takes, ``nr_stack_windows_ring_slots``, decides only how far
-  ahead the copies run, not which tile a read returns), the x/s operand
-  rows at ``t * 16 + r``, the kernel's bias-add order, f32 products of bf16
-  operands, h rounded to bf16, and the heads from the packed ``d1_f``,
-  ``d2_f``, ``mo_f`` -- is within max |dlogit| 0.05 of
+  output), layer 1's gate products from the packed ``l1_f`` tiles as
+  ``WeightStream`` hands them out of a per-warp S-slot ring (S = 4 here;
+  the depth decides only how far ahead the copies run, not which tile a
+  read returns), layers 2-4's from the ring of 16 KB fills that the
+  producer warp streams from the packed ``l2_r``, ``l3_r``, ``l4_r`` (the
+  fills' order, S = 2 slots refilled as each fill is taken, each warp's
+  two tiles of a fill the next two of its groups' tiles in turn),
+  the x/s operand rows at ``t * 16 + r``, the kernel's bias-add order, f32
+  products of bf16 operands, h rounded to bf16, and the heads from the
+  packed ``d1_f``, ``d2_f``, ``mo_f`` -- is within max |dlogit| 0.05 of
   ``stack_windows_plain(bf16=True)`` at M = 1 and 2, T = 11 and 13, n = 5
   and 33 (the bar the kernel is held to on the card; the two differ only
   in summation order and the bf16 rounding of h that follows from it);
 * in that emulation the N-split -- blocks in clusters of 2 (the grid
   padded to whole clusters), layer 1 per block, layers 2-4 split by
   direction, the peer's x and s rows copied each step into P, its h kept in
-  M by step parity, h stored into both blocks' outputs -- gives logits and
-  probs bit-identical to the unsplit schedule (each k16 product is taken
-  exactly, so a row's result depends on its own operands only). Against
-  the bf16 plain version the emulation cannot be bit-identical: torch sums
-  a product's K terms in another order than the k16 tiles do.
+  M by step parity (their strides per layer), h stored into both blocks'
+  outputs -- gives logits and probs bit-identical to the unsplit schedule
+  (each k16 product is taken exactly, so a row's result depends on its own
+  operands only), and so does the split schedule before the ring (each
+  warp streaming the fragment tiles of its groups, ``_gate_fragments``'
+  order, through its own ring, with fixed strides of P and M): the ring's
+  order changes which fill brings a tile, not a product or its k order.
+  Against the bf16 plain version the emulation cannot be bit-identical:
+  torch sums a product's K terms in another order than the k16 tiles do.
 """
 
 import numpy as np
@@ -49,8 +56,10 @@ KG, TILE = 16, 512
 LD_X, LD_F = 72, 24
 LD_L1, LD_L2, LD_L3, LD_L4 = 40, 136, 264, 136
 LD_H1, LD_H2 = 136, 40
-LD_P, LD_M = 264, 136
+LD_P, LD_M = 264, 136   # the peer's rows before the ring (fixed strides)
 SLOTS = 4
+RING_SLOTS = 2
+FILL = 8192             # bf16 of one 16 KB fill: 8 warps x 2 tiles
 CLUSTER = 2             # nr_stack_cluster_size: the N-split's pair
 
 
@@ -230,65 +239,149 @@ def _lstm_layer(smem, hidden, kx, ks, kh, x, s, out, wpack, bias, t_len, slots):
         assert ws.taken == ws.total and ws.requested == ws.total + ws.slots - 1
 
 
+class _Ring:
+    """The producer's ring of one block and direction: fills of FILL bf16
+    from ``flat`` at ``src``, ``per_step`` a step and T times over, landing
+    ``slots`` ahead of the fill taken; each take returns the fill (its slot
+    refilled at once, as the warps release it once their tiles are in
+    registers) as [8 warps, 2 tiles, TILE]."""
+
+    def __init__(self, flat, src, per_step, t_len, slots):
+        self.flat, self.src, self.per_step = flat, src, per_step
+        self.total, self.slots = per_step * t_len, slots
+        self.ring = torch.full((slots, FILL), float("nan"))
+        self.issued = self.taken = 0
+        for _ in range(slots):
+            self._issue()
+
+    def _issue(self):
+        if self.issued < self.total:
+            o = self.src + (self.issued % self.per_step) * FILL
+            self.ring[self.issued % self.slots] = self.flat[o : o + FILL]
+            self.issued += 1
+
+    def take(self):
+        fill = self.ring[self.taken % self.slots].clone()
+        self.taken += 1
+        self._issue()
+        return fill.reshape(8, 2, TILE)
+
+
+def _ring_chain(a, k_tiles, ring):
+    """gate_chain<K>: a [blocks, rows, 16 K] @ the ring's next K / 2 fills,
+    each warp's group at once: [blocks, rows, 8 warps, 4 gates, 8]; each
+    k16 product exact in f64, rounded once to f32 and added in k order, as
+    _gate_tiles."""
+    acc = torch.zeros(a.shape[0], a.shape[1], 8, 32)
+    for f in range(k_tiles // 2):
+        fill = ring.take()
+        for j in range(2):
+            kt = 2 * f + j
+            w = fill[:, j][:, GATE_IDX]                       # [8, 4, 16, 8]
+            w = w.permute(0, 2, 1, 3).reshape(8, 16, 32).double()
+            acc = acc + torch.einsum(
+                "brk,wkn->brwn", a[:, :, 16 * kt : 16 * kt + 16].double(), w).float()
+    return acc.reshape(a.shape[0], a.shape[1], 8, 4, 8)
+
+
 def _lstm_layer_split(smem, peer_rows, peer_h, hidden, kx, ks, kh, x, s, out,
-                      wpack, bias, t_len, slots):
+                      wpack, bias, t_len, slots, ring):
     """lstm_layer_split<H, KX, KS, KH, S> over clusters of 2 blocks (blocks
     2j, 2j + 1): block d of a pair runs direction d for both, its own 16
     windows as rows 0-15 and its peer's as rows 16-31 of one product per
     weight tile. Each step it copies the peer's x and s rows into
-    ``peer_rows`` (P: [blocks, 16 LD_P], x at 0, s after 16 KX) and reads
+    ``peer_rows`` (P: [blocks, 16 ldP], x at 0, s after 16 KX) and reads
     the peer's h of the previous step from ``peer_h`` (M: [blocks, 2 parities
-    x 16 x LD_M]); h goes to its own output rows, the peer's output rows and
-    M. A warp owns H/64 groups and its own stream."""
+    x 16 x ldM]); h goes to its own output rows, the peer's output rows and
+    M. A warp owns Q = H/64 groups, which it runs one after the other. With
+    ``ring`` the kernel's schedule: ``wpack`` the ring's fills (``l*_r``),
+    taken by all warps in turn, ldP and ldM per layer; without, the
+    schedule before the ring: ``wpack`` the groups' fragment tiles
+    (``_gate_fragments``), each warp with its own stream, LD_P and LD_M."""
     groups = hidden // 8
     gpw = groups // 8
     tiles = kx + ks + kh
+    ldp, ldm = ((kx + ks) * 16 + 8, hidden + 8) if ring else (LD_P, LD_M)
     flat = wpack.float().reshape(-1)
     r16 = torch.arange(16)
     c = {}
     for d in (0, 1):
         own, peer = slice(d, None, 2), slice(1 - d, None, 2)
-        warps = [(w * gpw, _Stream(flat, (d * groups + w * gpw) * tiles * TILE,
-                                   gpw * tiles, t_len, slots)) for w in range(8)]
+        if ring:
+            nf = gpw * tiles // 2
+            rg = _Ring(flat, d * nf * FILL, nf, t_len, slots)
+        else:
+            warps = [(w * gpw, _Stream(flat, (d * groups + w * gpw) * tiles * TILE,
+                                       gpw * tiles, t_len, slots)) for w in range(8)]
         for st in range(t_len):
             t = t_len - 1 - st if d else st
             tp = t if st == 0 else (t + 1 if d else t - 1)
             cols_x = torch.arange(16 * kx)
-            peer_rows[own, (r16[:, None] * LD_P + cols_x).reshape(-1)] = smem[
+            peer_rows[own, (r16[:, None] * ldp + cols_x).reshape(-1)] = smem[
                 peer, (x[0] + (t * x[2] + r16[:, None]) * x[1] + cols_x).reshape(-1)]
             if ks:
                 cols_s = torch.arange(16 * ks)
-                peer_rows[own, (r16[:, None] * LD_P + 16 * kx + cols_s).reshape(-1)] = smem[
+                peer_rows[own, (r16[:, None] * ldp + 16 * kx + cols_s).reshape(-1)] = smem[
                     peer, (s[0] + (t * s[2] + r16[:, None]) * s[1] + cols_s).reshape(-1)]
             xa = torch.cat([_rows(smem[own], x[0], x[1], t * x[2] + r16, kx),
-                            _rows(peer_rows[own], 0, LD_P, r16, kx)], dim=1)
+                            _rows(peer_rows[own], 0, ldp, r16, kx)], dim=1)
             if ks:
                 sa = torch.cat([_rows(smem[own], s[0], s[1], t * s[2] + r16, ks),
-                                _rows(peer_rows[own], 16 * kx, LD_P, r16, ks)], dim=1)
+                                _rows(peer_rows[own], 16 * kx, ldp, r16, ks)], dim=1)
             ha = torch.cat([_rows(smem[own], out[0] + d * hidden, out[1], tp * KG + r16, kh),
-                            _rows(peer_h[own], ((st + 1) % 2) * KG * LD_M, LD_M, r16, kh)],
+                            _rows(peer_h[own], ((st + 1) % 2) * KG * ldm, ldm, r16, kh)],
                            dim=1)
-            for u0, ws in warps:
-                for q in range(gpw):
-                    cols = (u0 + q) * 8 + torch.arange(8)
-                    acc = _gate_tiles(xa, kx, ws)
-                    acc = acc + bias[d * 4 * hidden + hidden * torch.arange(4)[:, None]
-                                     + cols[None, :]]
+            ha = torch.zeros_like(ha) if st == 0 else ha
+            # the ring: group q of every warp at once, the chains in turn
+            for u in sorted(range(groups), key=lambda u: (u % gpw, u // gpw)):
+                cols = u * 8 + torch.arange(8)
+                b = bias[d * 4 * hidden + hidden * torch.arange(4)[:, None] + cols[None, :]]
+                if ring:
+                    w_, q = divmod(u, gpw)
+                    if w_ == 0:
+                        acc_r = _ring_chain(xa, kx, rg)
+                        s_r = _ring_chain(sa, ks, rg) if ks else None
+                        h_r = _ring_chain(ha, kh, rg)
+                    acc = acc_r[:, :, w_] + b
+                    if ks:
+                        acc = acc + s_r[:, :, w_]
+                    z = acc + h_r[:, :, w_]
+                else:
+                    ws = warps[u // gpw][1]
+                    acc = _gate_tiles(xa, kx, ws) + b
                     if ks:
                         acc = acc + _gate_tiles(sa, ks, ws)
-                    z = acc + _gate_tiles(torch.zeros_like(ha) if st == 0 else ha, kh, ws)
-                    cq = c.get((d, u0 + q), torch.zeros(z.shape[0], 32, 8))
-                    cq = _hs(z[:, :, 1]) * cq + _hs(z[:, :, 0]) * torch.tanh(z[:, :, 2])
-                    c[(d, u0 + q)] = cq
-                    h = _bf(_hs(z[:, :, 3]) * torch.tanh(cq))
-                    idx = (out[0] + (t * KG + r16)[:, None] * out[1] + d * hidden
-                           + cols[None, :])
-                    smem[own, idx.reshape(-1)] = h[:, :16].reshape(h.shape[0], -1)
-                    smem[peer, idx.reshape(-1)] = h[:, 16:].reshape(h.shape[0], -1)
-                    m_idx = (st % 2) * KG * LD_M + r16[:, None] * LD_M + cols[None, :]
-                    peer_h[own, m_idx.reshape(-1)] = h[:, 16:].reshape(h.shape[0], -1)
-        for _, ws in warps:
-            assert ws.taken == ws.total and ws.requested == ws.total + ws.slots - 1
+                    z = acc + _gate_tiles(ha, kh, ws)
+                cq = c.get((d, u), torch.zeros(z.shape[0], 32, 8))
+                cq = _hs(z[:, :, 1]) * cq + _hs(z[:, :, 0]) * torch.tanh(z[:, :, 2])
+                c[(d, u)] = cq
+                h = _bf(_hs(z[:, :, 3]) * torch.tanh(cq))
+                idx = (out[0] + (t * KG + r16)[:, None] * out[1] + d * hidden
+                       + cols[None, :])
+                smem[own, idx.reshape(-1)] = h[:, :16].reshape(h.shape[0], -1)
+                smem[peer, idx.reshape(-1)] = h[:, 16:].reshape(h.shape[0], -1)
+                m_idx = (st % 2) * KG * ldm + r16[:, None] * ldm + cols[None, :]
+                peer_h[own, m_idx.reshape(-1)] = h[:, 16:].reshape(h.shape[0], -1)
+        if ring:
+            assert rg.taken == rg.total == rg.issued
+        else:
+            for _, ws in warps:
+                assert ws.taken == ws.total and ws.requested == ws.total + ws.slots - 1
+
+
+def _fragment_tiles(w):
+    """The split layers' gate tiles in the order before the ring:
+    [2 directions, H/8 groups, tiles, 2, 32, 8] of one model (bf16 row-major
+    weights ``w``), as ``pack_full_weights`` packs layer 1."""
+    segs = {
+        "l2": (rk.H2, lambda d: (w["wi2"][d], w["wh2"][d])),
+        "l3": (rk.H3, lambda d: (w["wi3"][d], w["wi3s"][:, 512 * d : 512 * d + 512],
+                                 w["wh3"][d])),
+        "l4": (rk.H4, lambda d: (w["wi4"][d], w["wh4"][d])),
+    }
+    return {k: torch.tensor(np.stack([rk._gate_fragments(
+        [x.float().numpy() for x in seg(d)], hidden) for d in (0, 1)]))
+        for k, (hidden, seg) in segs.items()}
 
 
 def _read_dense(packed):
@@ -313,11 +406,14 @@ def _dense(a, w):
     return acc
 
 
-def _emulate_windows(kw, feats, sig, t_len, cluster=CLUSTER):
+def _emulate_windows(kw, feats, sig, t_len, schedule="ring"):
     """Logits [M, n, 6] and probs [M, n] of the stack_windows kernel's
     schedule (windows past n stay NaN, as the kernel never writes them):
-    with ``cluster`` 2, blocks in pairs and layers 2-4 split by direction
-    (the kernel's), with 1 the unsplit schedule of every layer."""
+    "ring" (the kernel's) blocks in pairs, layers 2-4 split by direction
+    and fed by the producer's ring; "split" the same split with per-warp
+    streams of the fragment tiles (the schedule before the ring);
+    "unsplit" every layer per block."""
+    cluster = 1 if schedule == "unsplit" else CLUSTER
     n_models, n = sig.shape[0], sig.shape[1]
     n_blk = -(-n // (KG * cluster)) * cluster     # whole clusters, padded
     a_sz, b_sz, s_sz = (t_len * KG * ld for ld in (LD_L3, LD_L2, LD_X))
@@ -340,23 +436,27 @@ def _emulate_windows(kw, feats, sig, t_len, cluster=CLUSTER):
         smem[:, off_f + (t * KG + r) * LD_F + torch.arange(16)] = f.reshape(
             n_blk, KG, t_len, 16)
         w = {k: v[m] for k, v in kw.items()}
+        frags = _fragment_tiles(w) if schedule != "ring" else {}
         x_f, x_s = (off_f, LD_F, KG), (off_s, LD_X, KG)
         layers = (
-            (rk.H1, 1, 0, 1, x_f, (off_a, LD_L1), "l1_f", "b1"),
-            (rk.H2, 2, 0, 4, (off_a, LD_L1, KG), (off_b, LD_L2), "l2_f", "b2"),
-            (rk.H3, 8, 4, 8, (off_b, LD_L2, KG), (off_a, LD_L3), "l3_f", "b3"),
-            (rk.H4, 16, 0, 4, (off_a, LD_L3, KG), (off_b, LD_L4), "l4_f", "b4"),
+            (rk.H1, 1, 0, 1, x_f, (off_a, LD_L1), "l1", "b1"),
+            (rk.H2, 2, 0, 4, (off_a, LD_L1, KG), (off_b, LD_L2), "l2", "b2"),
+            (rk.H3, 8, 4, 8, (off_b, LD_L2, KG), (off_a, LD_L3), "l3", "b3"),
+            (rk.H4, 16, 0, 4, (off_a, LD_L3, KG), (off_b, LD_L4), "l4", "b4"),
         )
         peer_rows = torch.full((n_blk, KG * LD_P), float("nan"))
         peer_h = torch.full((n_blk, 2 * KG * LD_M), float("nan"))
         for li, (hidden, kx, ks, kh, x, out, key, bkey) in enumerate(layers):
-            if cluster == 1 or li == 0:
-                _lstm_layer(smem, hidden, kx, ks, kh, x, x_s, out, w[key],
+            tiles = w["l1_f"] if li == 0 else (
+                w[key + "_r"] if schedule == "ring" else frags[key])
+            if schedule == "unsplit" or li == 0:
+                _lstm_layer(smem, hidden, kx, ks, kh, x, x_s, out, tiles,
                             w[bkey].reshape(-1), t_len, SLOTS)
             else:
+                ring = schedule == "ring"
                 _lstm_layer_split(smem, peer_rows, peer_h, hidden, kx, ks, kh, x,
-                                  x_s, out, w[key], w[bkey].reshape(-1), t_len,
-                                  SLOTS)
+                                  x_s, out, tiles, w[bkey].reshape(-1), t_len,
+                                  RING_SLOTS if ring else SLOTS, ring)
         # the heads over the 16T rows [t][window] of layer 4's output
         r_all = torch.arange(rows)
         l4 = _rows(smem, off_b, LD_L4, r_all, 8)
@@ -398,17 +498,25 @@ def test_kernel_schedule_emulation_matches_bf16_plain(n_models, t, n):
     assert float(got_l[0].std(0).min()) > 1e-3
 
 
+_UNSPLIT = {}
+
+
+@pytest.mark.parametrize("schedule", ["ring", "split"])
 @pytest.mark.parametrize("n_models,t,n", [(1, 11, 1), (2, 11, 17), (1, 13, 32),
                                           (2, 13, 48)])
-def test_split_schedule_bit_identical_to_unsplit(n_models, t, n):
+def test_split_schedule_bit_identical_to_unsplit(n_models, t, n, schedule):
     """Splitting layers 2-4 over a cluster of 2 blocks changes no product,
-    no k order and no rounding of any (window, unit): the logits and probs
-    equal the unsplit schedule's bit for bit, for one block (its cluster
-    padded with an empty one), a block and one window, two whole blocks and
-    three (the last cluster one valid block)."""
+    no k order and no rounding of any (window, unit), with the producer's
+    ring (the kernel's schedule) or per-warp streams (the one before it):
+    the logits and probs equal the unsplit schedule's bit for bit, for one
+    block (its cluster padded with an empty one), a block and one window,
+    two whole blocks and three (the last cluster one valid block)."""
     kw = rk.kernel_weights(_stacked(t, seed=60 + t, n_models=n_models), "cpu")
     feats, sig = _inputs(n, t, n_models, seed=7 * t + n)
-    split_l, split_p = _emulate_windows(kw, feats, sig, t, cluster=2)
-    whole_l, whole_p = _emulate_windows(kw, feats, sig, t, cluster=1)
+    split_l, split_p = _emulate_windows(kw, feats, sig, t, schedule)
+    key = (n_models, t, n)       # the same inputs for both schedules
+    if key not in _UNSPLIT:
+        _UNSPLIT[key] = _emulate_windows(kw, feats, sig, t, "unsplit")
+    whole_l, whole_p = _UNSPLIT[key]
     assert not torch.isnan(split_l).any()
     assert torch.equal(split_l, whole_l) and torch.equal(split_p, whole_p)
