@@ -26,6 +26,9 @@ Counterpart of ``nanoreviser_tpu/cli/reviser.py``, with its flag surface
   that passthrough uses. A read whose rebasecall fails degrades to its own
   bases (in fastq, the embedded fastq trimmed 7/7) and is recorded in the
   ``-e`` file; the output is byte-identical to the JAX package's.
+* ``--trace_json FILE`` traces the run (``utils.trace``: seconds and calls
+  of the spans of the CLI, the prep pool and the engine, and the pool's
+  counters) and writes what it recorded to FILE as JSON at the end.
 * Every read is processed. A read that cannot be decoded, compacted or
   encoded fails: it goes to the ``-e`` file and gets no output file. A read
   the engine cannot revise degrades to its original bases and is recorded
@@ -37,9 +40,12 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures as cf
+import json
 import os
 import sys
 import time
+
+from ..utils import trace
 
 
 def _bounded_map(pool, fn, items, prefetch: int):
@@ -91,6 +97,10 @@ def get_args(argv=None):
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the CUDA kernels; cpu the plain versions")
+    p.add_argument(
+        "--trace_json", default=None, metavar="FILE",
+        help="trace this run (utils.trace) and write its spans' seconds and "
+             "calls and its counters to FILE as JSON")
     p.add_argument("-v", "--virsion", action="store_true", help="version")
     args = p.parse_args(argv)
     if args.virsion:
@@ -126,6 +136,18 @@ def _engine_device(device: str, rank: int, world: int) -> str:
 
 def main(argv=None) -> int:
     args = get_args(argv)
+    if not args.trace_json:
+        return _main(args)
+    was = trace.enable(True)
+    try:
+        return _main(args)
+    finally:
+        with open(args.trace_json, "w") as fp:
+            json.dump(trace.take(), fp, indent=1, sort_keys=True)
+        trace.enable(was)
+
+
+def _main(args) -> int:
     from .. import dist
     from ..io import (
         extract_fastq,
@@ -155,10 +177,11 @@ def main(argv=None) -> int:
                 "！！！[Error] model file: Please check the dir of models file!!"
             )
         check_path(args.output_dir)
-        fast5_fns = list_fast5_files(args.fast5_base_dir)
-        if world > 1:
-            fast5_fns = dist.shard_files(fast5_fns, rank, world)
-            print(f"[p:::] process {rank}/{world}: {len(fast5_fns)} reads")
+        with trace.span("cli.list"):
+            fast5_fns = list_fast5_files(args.fast5_base_dir)
+            if world > 1:
+                fast5_fns = dist.shard_files(fast5_fns, rank, world)
+                print(f"[p:::] process {rank}/{world}: {len(fast5_fns)} reads")
         start_time = time.time()
         failed: list[tuple[str, str]] = []
 
@@ -174,14 +197,18 @@ def main(argv=None) -> int:
             from ..infer import PrepPool, StreamingReviser
 
             n_workers = min(max(1, args.thread), len(os.sched_getaffinity(0)))
-            with PrepPool(n_workers, args.basecall_group,
-                          args.basecall_subgroup) as pool:
-                engine = StreamingReviser(
-                    m1, m2, align=args.align,
-                    emit_quality=(args.output_format == "fastq"),
-                    device=_engine_device(args.device, rank, world),
-                )
-                pool.ready()
+            with trace.span("cli.pool_spawn"):
+                pool = PrepPool(n_workers, args.basecall_group,
+                                args.basecall_subgroup)
+            try:
+                with trace.span("cli.engine_init"):
+                    engine = StreamingReviser(
+                        m1, m2, align=args.align,
+                        emit_quality=(args.output_format == "fastq"),
+                        device=_engine_device(args.device, rank, world),
+                    )
+                with trace.span("cli.pool_ready"):
+                    pool.ready()
 
                 def prepped():
                     for fn, wire, err in pool.stream(args.fast5_base_dir,
@@ -194,6 +221,9 @@ def main(argv=None) -> int:
                 # the engine records degraded reads in `failed` before
                 # yielding them
                 yield from engine.revise_stream(prepped(), errors=failed)
+            finally:
+                with trace.span("cli.pool_close"):
+                    pool.close()
 
         def decoded():
             """(fn, ReadData), decoded on a thread pool."""
@@ -255,56 +285,60 @@ def main(argv=None) -> int:
                  "passthrough": passthrough_items}[mode]()
         try:
             for fn, _, seq, qual in items:
-                try:
-                    stem = fn.split(".")[0]
-                    if args.output_format == "fasta":
-                        out_fn = os.path.join(args.output_dir, stem + "_out.fasta")
-                        write_read_fasta(fn, out_fn, seq)
-                    else:
-                        out_fn = os.path.join(args.output_dir, stem + "_out.fastq")
-                        if qual is None:
-                            # degraded or passthrough: the reference's fastq
-                            # fallback is the embedded fastq trimmed 7/7
-                            seq, qual = extract_fastq(
-                                os.path.join(args.fast5_base_dir, fn),
-                                args.basecall_group, args.basecall_subgroup,
-                            )
-                        write_read_fastq(fn, out_fn, seq, qual)
-                    if args.merged_output:
-                        with open(out_fn) as fp:
-                            header, body = fp.read().split("\n", 1)
-                        merged_records.append((header, body))
-                    if mode in ("model", "basecaller") and was_degraded(fn):
-                        if args.test_mode and logger:
-                            logger.error(
-                                "[!!! Error] read degraded to passthrough: %s", fn)
+                with trace.span("cli.emit"):
+                    try:
+                        stem = fn.split(".")[0]
+                        if args.output_format == "fasta":
+                            out_fn = os.path.join(args.output_dir, stem + "_out.fasta")
+                            with trace.span("cli.write"):
+                                write_read_fasta(fn, out_fn, seq)
                         else:
-                            print(f"！！！[Error] {stem} degraded to passthrough "
-                                  f"(see {args.failed_reads_filename})")
-                    elif args.test_mode and logger:
-                        logger.info("Congratulations, NanoReviser is installed properly")
-                    elif not args.test_mode:
-                        print(f"[p:::] {stem}_out.{args.output_format} was saved......")
-                except Exception as exc:  # noqa: BLE001 — per-read output failure
-                    report(fn, exc)
+                            out_fn = os.path.join(args.output_dir, stem + "_out.fastq")
+                            if qual is None:
+                                # degraded or passthrough: the reference's fastq
+                                # fallback is the embedded fastq trimmed 7/7
+                                seq, qual = extract_fastq(
+                                    os.path.join(args.fast5_base_dir, fn),
+                                    args.basecall_group, args.basecall_subgroup,
+                                )
+                            with trace.span("cli.write"):
+                                write_read_fastq(fn, out_fn, seq, qual)
+                        if args.merged_output:
+                            with open(out_fn) as fp:
+                                header, body = fp.read().split("\n", 1)
+                            merged_records.append((header, body))
+                        if mode in ("model", "basecaller") and was_degraded(fn):
+                            if args.test_mode and logger:
+                                logger.error(
+                                    "[!!! Error] read degraded to passthrough: %s", fn)
+                            else:
+                                print(f"！！！[Error] {stem} degraded to passthrough "
+                                      f"(see {args.failed_reads_filename})")
+                        elif args.test_mode and logger:
+                            logger.info("Congratulations, NanoReviser is installed properly")
+                        elif not args.test_mode:
+                            print(f"[p:::] {stem}_out.{args.output_format} was saved......")
+                    except Exception as exc:  # noqa: BLE001 — per-read output failure
+                        report(fn, exc)
         finally:
             items.close()   # stops the prep pool if the loop raised
 
-        if args.merged_output:
-            # every process writes its shard's part; process 0 concatenates
-            # them in shard order
-            dist.write_merged_part(args.output_dir, rank, merged_records)
-            if rank == 0:
-                dist.merge_parts(args.output_dir, args.merged_output, world)
+        with trace.span("cli.finish"):
+            if args.merged_output:
+                # every process writes its shard's part; process 0
+                # concatenates them in shard order
+                dist.write_merged_part(args.output_dir, rank, merged_records)
+                if rank == 0:
+                    dist.merge_parts(args.output_dir, args.merged_output, world)
 
-        if failed and args.failed_reads_filename:
-            with open(args.failed_reads_filename, "w") as fp:
-                for fn, err in failed:
-                    fp.write(f"{fn}\t{err}\n")
+            if failed and args.failed_reads_filename:
+                with open(args.failed_reads_filename, "w") as fp:
+                    for fn, err in failed:
+                        fp.write(f"{fn}\t{err}\n")
 
-        if not args.test_mode:
-            print("[s:::] NanoReviser time consuming:%.2f seconds"
-                  % (time.time() - start_time))
+            if not args.test_mode:
+                print("[s:::] NanoReviser time consuming:%.2f seconds"
+                      % (time.time() - start_time))
         ok = True
         return 0 if not failed else 1
     finally:

@@ -6,7 +6,8 @@ it; worker processes do. Each worker runs ``signal.host_prep``'s entry
 points: ``io.fast5.get_read_data`` -> ``compact_read`` -> the host
 library's wire encode, written into one of a ring of ``/dev/shm`` slots,
 so that only the small fields of a read (its bases, normalizers, chain
-values and escape counts) travel back through the pool's result pipe.
+values and escape counts) travel back through the pool's result pipe, with
+the worker's own seconds over the chunk.
 
 Slot lifetime: ``stream`` yields a ``WireRead`` whose arrays view a slot;
 the view is valid until the caller asks for the next item, when the slot is
@@ -19,6 +20,12 @@ named ``nanorev_torch_prep_<pid>_<pool>_<slot>``; ``_gc_stale_slots``
 removes those of processes that died before ``close``. Submission is
 bounded (``prefetch``), and results come back in input order as
 (name, WireRead or None, error text or None).
+
+Traced (``utils.trace``): spans ``pool.submit`` (a chunk handed to the
+pool), ``pool.wait`` (blocked on a chunk's results) and ``pool.unpack``
+(a read's views of its slot); counters ``pool.worker_s`` and
+``pool.worker_reads``, the prep's own seconds in the workers and the reads
+they prepped.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..signal.host_prep import (
     _slot_views,
     slot_layout,
 )
+from ..utils import trace
 from .wire import WireRead
 
 # The largest read the default engine's top tier holds on the card (196,608
@@ -192,26 +200,34 @@ class PrepPool:
                     os.path.join(base_dir, fn), self._inline_buf, *spec)
                 self.native_fallbacks += fb
                 if isinstance(payload, tuple):
-                    payload = _wire_from_slot(self._inline_buf, self._layout, payload)
+                    with trace.span("pool.unpack"):
+                        payload = _wire_from_slot(self._inline_buf, self._layout,
+                                                  payload)
                 yield fn, payload, err
             return
         free = collections.deque(range(len(self._slot_paths)))
         queue: collections.deque = collections.deque()
 
         def submit(chunk_fns):
-            slots = [free.popleft() if free else -1 for _ in chunk_fns]
-            fut = self._pool.apply_async(_pool_prep_chunk, (
-                [os.path.join(base_dir, fn) for fn in chunk_fns],
-                [self._slot_paths[s] if s >= 0 else None for s in slots],
-                *spec))
-            queue.append((chunk_fns, slots, fut))
+            with trace.span("pool.submit"):
+                slots = [free.popleft() if free else -1 for _ in chunk_fns]
+                fut = self._pool.apply_async(_pool_prep_chunk, (
+                    [os.path.join(base_dir, fn) for fn in chunk_fns],
+                    [self._slot_paths[s] if s >= 0 else None for s in slots],
+                    *spec))
+                queue.append((chunk_fns, slots, fut))
 
         def emit(chunk_fns, slots, fut):
-            for fn, slot, (payload, err, fb) in zip(chunk_fns, slots, fut.get()):
+            with trace.span("pool.wait"):
+                results, worker_s = fut.get()
+            trace.count("pool.worker_s", worker_s)
+            trace.count("pool.worker_reads", len(results))
+            for fn, slot, (payload, err, fb) in zip(chunk_fns, slots, results):
                 self.native_fallbacks += fb
                 if isinstance(payload, tuple):
-                    payload = _wire_from_slot(self._slot_maps[slot], self._layout,
-                                              payload)
+                    with trace.span("pool.unpack"):
+                        payload = _wire_from_slot(self._slot_maps[slot],
+                                                  self._layout, payload)
                 yield fn, payload, err
                 if slot >= 0:
                     free.append(slot)      # recycled once the caller advances

@@ -23,6 +23,14 @@ the card (``tests/test_torch_cuda.py`` checks it on the card).
 is no card. ``device="cpu"`` runs the plain f32 versions of the gather and
 the stack, the counterpart of the JAX engine's ``use_pallas=False`` path.
 
+Traced (``utils.trace``), on the thread that drives ``revise_stream``:
+spans ``engine.add_read``, ``engine.new_batch``, ``engine.submit`` (with
+``engine.slot_wait``, blocked on the card for a free upload slot, inside
+it), ``engine.fetch_wait`` (blocked on a batch's outputs, and their copy
+off the slot), ``engine.unpack`` (a read's labels sliced from its batch),
+``engine.calibrate`` and ``engine.merge``. No span is open while the
+generator yields.
+
 Failure contract: a bad read (too short, no signal, a wire-format
 violation, too large for a batch, a merge error) degrades to its original
 bases and is recorded in ``errors``; a device or kernel fault raises.
@@ -50,6 +58,7 @@ from ..ops.reviser_kernel import (
 )
 from ..ops.window_gather import Q, window_gather, window_gather_plain
 from ..signal.host_prep import CompactRead, compact_read_numpy
+from ..utils import trace
 from .merge import (
     calibrate_center_offset,
     merge_revision,
@@ -301,7 +310,8 @@ class StreamingReviser:
     def _acquire_slot(self) -> _Slot:
         for s in self._slots:
             if not s.busy:
-                s.done.synchronize()
+                with trace.span("engine.slot_wait"):
+                    s.done.synchronize()
                 s.busy = True
                 return s
         raise RuntimeError("more batches in flight than upload slots")
@@ -346,10 +356,11 @@ class StreamingReviser:
         """Wait for a batch and copy its outputs off the slot."""
         if p.slot is None:
             return
-        p.slot.done.synchronize()
-        p.labels = p.slot.out_labels[: p.n_windows].numpy().copy()
-        if self.emit_quality:
-            p.q = p.slot.out_q[:, : p.n_windows].numpy().copy()
+        with trace.span("engine.fetch_wait"):
+            p.slot.done.synchronize()
+            p.labels = p.slot.out_labels[: p.n_windows].numpy().copy()
+            if self.emit_quality:
+                p.q = p.slot.out_q[:, : p.n_windows].numpy().copy()
         p.slot.busy = False
         p.slot = None
 
@@ -504,7 +515,8 @@ class StreamingReviser:
 
     def _calibrate(self, bases: str, y1: np.ndarray) -> None:
         """Lazy per-weights center-offset calibration (align="auto")."""
-        off, agree = calibrate_center_offset(bases, y1, self.window)
+        with trace.span("engine.calibrate"):
+            off, agree = calibrate_center_offset(bases, y1, self.window)
         self._center_offset = off
         log.info("center offset calibrated: %d (model1 agreement %.3f)",
                  off, agree)
@@ -547,14 +559,15 @@ class StreamingReviser:
                 yield (name, read, None, None) if emit == "labels" else (
                     name, read, read.bases, None)
                 continue
-            pk = packed[r0 : r0 + wr]
-            y1 = (pk >> 3).astype(np.int32)
-            y2 = (pk & 7).astype(np.int32)
+            with trace.span("engine.unpack"):
+                pk = packed[r0 : r0 + wr]
+                y1 = (pk >> 3).astype(np.int32)
+                y2 = (pk & 7).astype(np.int32)
+                q1 = q[0, r0 : r0 + wr] if q is not None else None
+                q2 = q[1, r0 : r0 + wr] if q is not None else None
             if emit == "labels":
                 yield name, read, y1, y2
                 continue
-            q1 = q[0, r0 : r0 + wr] if q is not None else None
-            q2 = q[1, r0 : r0 + wr] if q is not None else None
             if self._center_offset is None:
                 if wr >= 64:
                     self._calibrate(read.bases, y1)
@@ -570,7 +583,8 @@ class StreamingReviser:
 
     def _merge_safe(self, name, read, y1, y2, q1, q2, errors):
         try:
-            return self._merge_one(name, read, y1, y2, q1, q2)
+            with trace.span("engine.merge"):
+                return self._merge_one(name, read, y1, y2, q1, q2)
         except Exception as exc:  # noqa: BLE001 — per-read degradation
             return self._fallback(name, read, "seq", errors, exc)
 
@@ -595,7 +609,8 @@ class StreamingReviser:
         collect (name, exception) pairs.
         """
         pending: collections.deque[_Pending] = collections.deque()
-        batch = self._new_batch()
+        with trace.span("engine.new_batch"):
+            batch = self._new_batch()
         precal: list = []          # stream-local pre-calibration stash
         for s in self._slots:      # batches of an abandoned stream
             s.done.synchronize()
@@ -618,16 +633,20 @@ class StreamingReviser:
                     prepped = encode_read(read)
                 else:
                     prepped = encode_read(compact_read_numpy(read))
-                added = self._add_read(batch, name, read, prepped)
+                with trace.span("engine.add_read"):
+                    added = self._add_read(batch, name, read, prepped)
             except Exception as exc:  # noqa: BLE001 — host prep of one read
                 yield self._fallback(name, read, emit, errors, exc)
                 continue
             if not added and batch.meta:
                 # device faults in the batch propagate: no degradation here
-                pending.append(self._submit(batch))
-                batch = self._new_batch()
+                with trace.span("engine.submit"):
+                    pending.append(self._submit(batch))
+                with trace.span("engine.new_batch"):
+                    batch = self._new_batch()
                 try:
-                    added = self._add_read(batch, name, read, prepped)
+                    with trace.span("engine.add_read"):
+                        added = self._add_read(batch, name, read, prepped)
                 except ValueError as exc:
                     yield self._fallback(name, read, emit, errors, exc)
                     continue
@@ -640,15 +659,17 @@ class StreamingReviser:
             if len(pending) > self.max_in_flight:
                 yield from self._finish(pending.popleft(), emit, precal, errors)
         if batch.meta:
-            pending.append(self._submit(batch))
+            with trace.span("engine.submit"):
+                pending.append(self._submit(batch))
         while pending:
             yield from self._finish(pending.popleft(), emit, precal, errors)
         if precal:
             # every read so far was too short for a confident calibration:
             # calibrate from the longest one with the sample floor lowered
             longest = max(precal, key=lambda it: len(it[2]))
-            off, agree = calibrate_center_offset(
-                longest[1].bases, longest[2], self.window, min_n=8)
+            with trace.span("engine.calibrate"):
+                off, agree = calibrate_center_offset(
+                    longest[1].bases, longest[2], self.window, min_n=8)
             self._center_offset = off
             log.warning(
                 "stream ended before a read long enough for confident "

@@ -41,6 +41,7 @@ This module and everything it imports stay free of torch: the prep pool's
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -486,7 +487,11 @@ def _pool_prep_to_slot(path: str, slot_path: str | None, *spec):
     return _pool_prep_one(path, buf, *spec)
 
 
-def _pool_prep_chunk(paths: list, slot_paths: list, *spec) -> list:
+def _pool_prep_chunk(paths: list, slot_paths: list, *spec) -> tuple[list, float]:
     """A chunk of reads per task: one round trip through the pool's pipes
-    for several reads."""
-    return [_pool_prep_to_slot(p, s, *spec) for p, s in zip(paths, slot_paths)]
+    for several reads. Returns their results and this worker's
+    ``perf_counter`` seconds over them (decode, compact, encode, slot
+    write)."""
+    t = time.perf_counter()
+    out = [_pool_prep_to_slot(p, s, *spec) for p, s in zip(paths, slot_paths)]
+    return out, time.perf_counter() - t

@@ -5,6 +5,9 @@
   library give identical ops, j_start and score on 24 mutated reads
   (substitutions, insertions, deletions at three rates, bands 128 and 256),
   on a one-base read and on an alignment whose path reaches the band's edge.
+  The JAX package's library is loaded from a complete file (the
+  ``jax_native`` fixture of ``tests/torch_jax_native.py``), whichever test
+  worker built it in place.
 * ``clip_ops``, ``columns_from_ops``, ``KmerIndex.seed`` and
   ``align_read_to_genome`` on both strands (with adapter ends to clip) give
   the JAX package's results.
@@ -29,6 +32,7 @@ from nanoreviser_torch.align import sw as port_sw
 from nanoreviser_tpu.align import labels as jax_labels
 from nanoreviser_tpu.align import sam as jax_sam
 from nanoreviser_tpu.align import sw as jax_sw
+from tests.torch_jax_native import jax_native  # noqa: F401 (fixture)
 
 
 @pytest.fixture(autouse=True)
@@ -77,7 +81,7 @@ def _assert_same(res):
     (2, (0.10, 0.05, 0.05), 256),
     (3, (0.06, 0.03, 0.03), 128),
 ])
-def test_dp_backends_identical(group, rates, band):
+def test_dp_backends_identical(jax_native, group, rates, band):
     rng = np.random.default_rng(100 + group)
     for _ in range(6):
         ref = "".join(rng.choice(list("ACGT"), 1200))
@@ -92,12 +96,12 @@ def test_dp_backends_identical(group, rates, band):
         assert mv.count("M") > 0.6 * len(read)
 
 
-def test_dp_one_base_read():
+def test_dp_one_base_read(jax_native):
     for read, ref in (("A", "CCAGT"), ("G", "ACGTTGCA" * 40), ("T", "T")):
         _assert_same(_all_backends(read, ref, band=16))
 
 
-def test_dp_path_reaches_band_edge():
+def test_dp_path_reaches_band_edge(jax_native):
     """A 40-base deletion early in the read drags the path off the band's
     centre line until it reaches the band's edge."""
     rng = np.random.default_rng(9)

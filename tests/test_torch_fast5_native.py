@@ -31,9 +31,10 @@ package (CPU; g++ builds the host library, h5py writes the files).
   it while another writes it fails, and its loader gives up for the life of
   the process; ``compact_fast5`` then takes its h5py path, whose features
   differ by one f16 ULP on f8 event moments. The ``jax_native`` fixture
-  compiles the same source with the same flags into a private directory
-  unless this process already holds the library, and every JAX
-  ``compact_fast5`` that must be native fails loudly if it falls back.
+  (``tests/torch_jax_native.py``) compiles the same source with the same
+  flags into a private directory unless this process already holds the
+  library, and every JAX ``compact_fast5`` that must be native fails loudly
+  if it falls back.
 * Bad reads fail with the Python path's ``Fast5Error`` text and count no
   fallback; the library's return code names the reason. A too-small ``out``
   is retried once. Seeded truncations and byte flips never crash or hang
@@ -53,8 +54,6 @@ import numpy as np
 import pytest
 
 import nanoreviser_tpu.io as jio
-import nanoreviser_tpu.native as jnative
-import nanoreviser_tpu.native.build as jbuild
 import nanoreviser_tpu.signal.host_prep as jprep
 from nanoreviser_torch import native
 from nanoreviser_torch.infer.hostpipe import PrepPool
@@ -64,6 +63,7 @@ from nanoreviser_torch.io.fast5 import Fast5Error
 from nanoreviser_torch.io.synthetic import (
     EVENT_DTYPE, synthetic_read_arrays, write_synthetic_dir, write_synthetic_fast5)
 from nanoreviser_torch.signal import host_prep
+from tests.torch_jax_native import jax_native  # noqa: F401 (fixture)
 
 GROUP = "/Analyses/Basecall_1D_000"
 EVENTS = GROUP + "/BaseCalled_template/Events"
@@ -173,28 +173,6 @@ def _assert_same(a, b, what):
             assert x == y, (what, k)
 
 
-@pytest.fixture(scope="module")
-def jax_native(tmp_path_factory):
-    """The JAX package's native fast5 path, loaded from a complete library.
-    Unless this process's JAX loader already holds the library, compiles
-    ``nanorev.cpp`` with the JAX package's own flags into a private
-    directory (the same bytes as its in-place build), points the loader at
-    it and clears its state, so a failed load of a half-written in-place
-    file cannot leave the loader given up. Restores the loader at the end."""
-    saved = (jnative.LIB_PATH, jnative._LIB, jnative._TRIED, jnative._HDF5_OK)
-    if jnative._LIB is None:
-        lib = tmp_path_factory.mktemp("jax_native") / "libnanorev.so"
-        subprocess.run(["g++", *jbuild.CXXFLAGS, jbuild.SRC, "-o", str(lib)],
-                       check=True, capture_output=True, text=True)
-        jnative.LIB_PATH = str(lib)
-        jnative._LIB, jnative._TRIED, jnative._HDF5_OK = None, False, None
-    if not jnative.hdf5_available():
-        pytest.fail("the JAX package's native fast5 path is unavailable "
-                    f"(library {jnative.LIB_PATH}, loaded: {jnative._LIB is not None})")
-    yield
-    jnative.LIB_PATH, jnative._LIB, jnative._TRIED, jnative._HDF5_OK = saved
-
-
 def _jax_compact_fast5_native(p, case, monkeypatch):
     """The JAX package's ``compact_fast5(p)``, failing if it falls back to
     its h5py path (``compact_read(get_read_data(p))``)."""
@@ -210,6 +188,9 @@ def _jax_compact_fast5_native(p, case, monkeypatch):
 
 @pytest.mark.parametrize("case", CASES)
 def test_ingest_parity(files, jax_native, monkeypatch, case):
+    if not jax_native.hdf5_available():
+        pytest.fail("the JAX package's native fast5 path is unavailable "
+                    f"(library {jax_native.LIB_PATH})")
     p = files[case]
     fb = host_prep.native_fallbacks()
     got = host_prep.compact_fast5(p)
