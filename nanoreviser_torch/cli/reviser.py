@@ -26,9 +26,16 @@ Counterpart of ``nanoreviser_tpu/cli/reviser.py``, with its flag surface
   that passthrough uses. A read whose rebasecall fails degrades to its own
   bases (in fastq, the embedded fastq trimmed 7/7) and is recorded in the
   ``-e`` file; the output is byte-identical to the JAX package's.
+* The per-read files are written by one writer thread
+  (``io.writers.FileWriter``), in bursts, while this thread goes on
+  feeding the device; a read's printed line follows its write, in read
+  order, and a failed write goes to the ``-e`` file when it is known. The
+  writer is joined before the merged output and the ``-e`` file are
+  written, so ``main`` returns with every file written.
 * ``--trace_json FILE`` traces the run (``utils.trace``: seconds and calls
-  of the spans of the CLI, the prep pool and the engine, and the pool's
-  counters) and writes what it recorded to FILE as JSON at the end.
+  of the spans of the CLI, the prep pool and the engine, and the pool's and
+  the writer's counters) and writes what it recorded to FILE as JSON at the
+  end.
 * Every read is processed. A read that cannot be decoded, compacted or
   encoded fails: it goes to the ``-e`` file and gets no output file. A read
   the engine cannot revise degrades to its original bases and is recorded
@@ -151,11 +158,12 @@ def _main(args) -> int:
     from .. import dist
     from ..io import (
         extract_fastq,
+        format_read_fasta,
+        format_read_fastq,
         get_read_data,
         list_fast5_files,
-        write_read_fasta,
-        write_read_fastq,
     )
+    from ..io.writers import FileWriter
     from ..utils import check_path, logger_config
 
     is_dist = dist.initialize(args.coordinator_address, args.num_processes,
@@ -185,8 +193,7 @@ def _main(args) -> int:
         start_time = time.time()
         failed: list[tuple[str, str]] = []
 
-        def report(fn: str, err) -> None:
-            failed.append((fn, str(err)))
+        def complain(fn: str, err) -> None:
             if args.test_mode and logger:
                 logger.error("[!!! Error] Basecalling")
             elif not args.test_mode:
@@ -280,6 +287,46 @@ def _main(args) -> int:
                 n_failed_seen += 1
             return fn in degraded_names
 
+        # the files are written on the writer's thread; what follows a file
+        # (its printed line, its merged record, or its write error in
+        # `failed`) waits in `after`, in read order, with the lines of the
+        # reads that failed in between, until the writer has written it
+        writer = FileWriter()
+        after: collections.deque = collections.deque()  # (waits for a file, action)
+
+        def settle() -> None:
+            done = collections.deque(writer.finished())
+            while after and (done or not after[0][0]):
+                waits, action = after.popleft()
+                action(done.popleft() if waits else None)
+
+        def report(fn: str, err) -> None:
+            failed.append((fn, str(err)))
+            if after:
+                after.append((False, lambda _: complain(fn, err)))
+            else:
+                complain(fn, err)
+
+        def emitted(fn: str, stem: str, record, degraded: bool):
+            def action(err) -> None:
+                if err is not None:
+                    failed.append((fn, str(err)))
+                    complain(fn, err)
+                    return
+                if record is not None:
+                    merged_records.append(record)
+                if degraded:
+                    if args.test_mode and logger:
+                        logger.error("[!!! Error] read degraded to passthrough: %s", fn)
+                    else:
+                        print(f"！！！[Error] {stem} degraded to passthrough "
+                              f"(see {args.failed_reads_filename})")
+                elif args.test_mode and logger:
+                    logger.info("Congratulations, NanoReviser is installed properly")
+                elif not args.test_mode:
+                    print(f"[p:::] {stem}_out.{args.output_format} was saved......")
+            return action
+
         merged_records: list = []
         items = {"model": model_items, "basecaller": basecaller_items,
                  "passthrough": passthrough_items}[mode]()
@@ -288,10 +335,10 @@ def _main(args) -> int:
                 with trace.span("cli.emit"):
                     try:
                         stem = fn.split(".")[0]
+                        degraded = mode in ("model", "basecaller") and was_degraded(fn)
                         if args.output_format == "fasta":
                             out_fn = os.path.join(args.output_dir, stem + "_out.fasta")
-                            with trace.span("cli.write"):
-                                write_read_fasta(fn, out_fn, seq)
+                            text = format_read_fasta(fn, seq)
                         else:
                             out_fn = os.path.join(args.output_dir, stem + "_out.fastq")
                             if qual is None:
@@ -301,27 +348,26 @@ def _main(args) -> int:
                                     os.path.join(args.fast5_base_dir, fn),
                                     args.basecall_group, args.basecall_subgroup,
                                 )
-                            with trace.span("cli.write"):
-                                write_read_fastq(fn, out_fn, seq, qual)
-                        if args.merged_output:
-                            with open(out_fn) as fp:
-                                header, body = fp.read().split("\n", 1)
-                            merged_records.append((header, body))
-                        if mode in ("model", "basecaller") and was_degraded(fn):
-                            if args.test_mode and logger:
-                                logger.error(
-                                    "[!!! Error] read degraded to passthrough: %s", fn)
-                            else:
-                                print(f"！！！[Error] {stem} degraded to passthrough "
-                                      f"(see {args.failed_reads_filename})")
-                        elif args.test_mode and logger:
-                            logger.info("Congratulations, NanoReviser is installed properly")
-                        elif not args.test_mode:
-                            print(f"[p:::] {stem}_out.{args.output_format} was saved......")
+                            text = format_read_fastq(fn, seq, qual)
+                        with trace.span("cli.write"):
+                            writer.put(out_fn, text)
+                        # the split that reading the file back gave
+                        record = (tuple(text.split("\n", 1)) if args.merged_output
+                                  else None)
+                        after.append((True, emitted(fn, stem, record, degraded)))
                     except Exception as exc:  # noqa: BLE001 — per-read output failure
                         report(fn, exc)
+                    settle()
         finally:
-            items.close()   # stops the prep pool if the loop raised
+            try:
+                items.close()   # stops the prep pool if the loop raised
+            finally:
+                with trace.span("cli.write_join"):
+                    writer.close()
+                trace.count("writer.files", writer.files)
+                trace.count("writer.bursts", writer.bursts)
+                trace.count("writer.busy_s", writer.busy_s)
+                settle()
 
         with trace.span("cli.finish"):
             if args.merged_output:

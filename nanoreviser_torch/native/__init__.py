@@ -10,10 +10,13 @@ entries the serving path calls and the training labeller's aligner:
 * ``compact_read_native_arrays`` - compaction (``compact_read_numpy``);
 * ``encode_wire_native``         - wire encode (``infer.wire.encode_read``);
 * ``banded_sw_native``           - the banded aligner
-                                   (``align.sw.banded_sw_torch``).
+                                   (``align.sw.banded_sw_torch``);
+* ``write_files_native``         - a burst of output files in one call
+                                   (``io.writers.FileWriter``'s thread).
 
 Each is exact with its twin (``tests/test_torch_fast5_native.py``,
-``tests/test_torch_native.py``, ``tests/test_torch_align.py``) and runs
+``tests/test_torch_native.py``, ``tests/test_torch_align.py``,
+``tests/test_torch_writer.py``) and runs
 with the GIL released. The library is built by g++ and loaded at the first
 call, never at import (``native.build``); a build that fails raises.
 A call the library refuses raises :class:`NativeError` with its return
@@ -92,6 +95,11 @@ _SIGNATURES = {
         _P, _P, _I64,             # vlen escapes, capacity
         _P, _I64,                 # color escapes, capacity
         _P,                       # counts out [4]
+    ]),
+    "nr_write_files": (ctypes.c_int64, [
+        _I64, ctypes.c_char_p,    # n, NUL-separated paths
+        ctypes.c_char_p, _P,      # data, ends i64 [n]
+        _P,                       # errs i32 [n] out
     ]),
 }
 
@@ -353,3 +361,18 @@ def banded_sw_native(q_codes, t_codes, band: int = 512, t_lead: int = 0,
     if n_ops < 0:
         raise NativeError("nr_banded_sw", n_ops)
     return ops[:n_ops].copy(), int(j_start.value), float(score.value)
+
+
+def write_files_native(paths: list, datas: list) -> list[int]:
+    """Write ``datas[k]`` (bytes) to ``paths[k]`` for every k by one call of
+    ``nr_write_files``, each file as ``open(path, "w")`` writes its text;
+    returns each file's errno (0 where it was written)."""
+    lib = load()
+    names = [os.fsencode(p) for p in paths]
+    if len(names) != len(datas) or any(b"\0" in p for p in names):
+        raise ValueError("paths and datas differ in length, or a path holds a NUL byte")
+    ends = np.cumsum([len(d) for d in datas], dtype=np.int64)
+    errs = np.zeros(len(names), np.int32)
+    lib.nr_write_files(len(names), b"".join(p + b"\0" for p in names),
+                       b"".join(datas), ends.ctypes.data, errs.ctypes.data)
+    return errs.tolist()

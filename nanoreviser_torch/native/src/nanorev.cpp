@@ -17,6 +17,8 @@
 //   nr_encode_wire   infer/wire.encode_read
 //   nr_banded_sw     align/sw.banded_sw_torch (ops, j_start and score equal;
 //                    its f32 score arithmetic keeps the JAX scan's order)
+//   nr_write_files   io/writers._write, for a burst of files (the bytes of
+//                    open(path, "w").write(text), same mode and errno)
 // All float math follows the numpy path operation for operation (f64
 // divisions, one rounding from f64 to f16), so the library must be built
 // with -ffp-contract=off: a fused multiply-add in s2/cnt - mean*mean would
@@ -1529,6 +1531,58 @@ int64_t nr_fast5_compact(
   } catch (const std::exception&) {     // bad_alloc on a corrupt size
     return E_READ;
   }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Burst file writes (nr_write_files), for io/writers.FileWriter: the reads'
+// output files are written off the thread that feeds the card, many in one
+// call, with the GIL released for all of them.
+
+#include <cerrno>
+
+extern "C" {
+
+// Write n files: file k is the path k of `paths` (n NUL-terminated paths
+// back to back), and holds bytes [ends[k-1], ends[k]) of `data` (ends[-1]
+// is 0). Each is opened as Python's open(path, "w") opens it (O_WRONLY |
+// O_CREAT | O_TRUNC | O_CLOEXEC, mode 0666 under the umask), written until
+// done (retried on EINTR and short writes) and closed; no fsync. errs[k] is
+// 0, or the errno of the call that failed; a failed file does not stop the
+// others. Returns the number of files that failed.
+int64_t nr_write_files(int64_t n, const char* paths, const uint8_t* data,
+                       const int64_t* ends, int32_t* errs) {
+  int64_t n_failed = 0, start = 0;
+  for (int64_t k = 0; k < n; ++k) {
+    const char* path = paths;
+    paths += std::strlen(paths) + 1;
+    const int64_t end = ends[k];
+    int err = 0;
+    int fd;
+    do {
+      fd = ::open(path, O_WRONLY | O_CREAT | O_TRUNC | O_CLOEXEC, 0666);
+    } while (fd < 0 && errno == EINTR);
+    if (fd < 0) {
+      err = errno;
+    } else {
+      for (int64_t off = start; off < end;) {
+        const ssize_t got = ::write(
+            fd, data + off, size_t(std::min<int64_t>(end - off, 1 << 30)));
+        if (got < 0) {
+          if (errno == EINTR) continue;
+          err = errno;
+          break;
+        }
+        off += got;
+      }
+      if (::close(fd) != 0 && err == 0 && errno != EINTR) err = errno;
+    }
+    errs[k] = err;
+    n_failed += err != 0;
+    start = end;
+  }
+  return n_failed;
 }
 
 }  // extern "C"
