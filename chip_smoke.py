@@ -5,12 +5,14 @@
     python3 chip_smoke.py --cli-only      # device, build, gather, e2e's CLI runs
     python3 chip_smoke.py --train-only    # device, build, train
     python3 chip_smoke.py --stack-only    # device, build, gather, stack, windows
+    python3 chip_smoke.py --crf-only      # device, build, crf
 
 (``--dp-step`` runs one worker process of phase train's data-parallel
 step; the script starts those itself.)
 
 ``--gather-only`` times the window gather, ``--cli-only`` the CLI runs of
-phase e2e, ``--train-only`` the training path and ``--stack-only`` the two
+phase e2e, ``--train-only`` the training path, ``--crf-only`` the CRF
+decode kernel and the basecaller's main path, and ``--stack-only`` the two
 stack kernels (with the sha256 of their outputs), of whatever package sits
 beside this file, so a copy of it in an older checkout times that checkout
 the same way (fields a package lacks, such as the stack's cluster size,
@@ -123,6 +125,18 @@ Phases, each printing one JSON line:
              every read is rebasecalled and its file must hold the stub's
              fastq trimmed 13/13; without the binary, every read degrades to
              the embedded fastq trimmed 7/7, is listed in -e, and rc is 1.
+   crf     - the CRF decode kernel (csrc/crf_decode.cu) at the basecaller
+             engine's batch (1,024 chunks x 800 steps x 256 states, seeded
+             fp16 scores of the encoder's form) against crf_decode_plain on
+             the card: labels and the moves' qualities equal, a second launch
+             bit-identical; kernel and plain ms by CUDA events and
+             the bound (scores' and labels' bytes at the memory rate, the
+             decode's float32 operations at the float32 peak). Then the
+             main path: --revise_mode basecaller --basecaller_model over
+             the 40 reads in fastq (HAC widths, seeded random weights)
+             under torch.profiler: every read written, rc 0, and one
+             crf_decode launch on the card per batch (and per eager
+             warm-up batch before the engine's graph capture).
 9. train   - the training path at the model's full width and the CLI's
              defaults (batch 512, T = 13): 8 synthetic reads of ~10k bases
              and a genome of their bases with ~2% substitutions and short
@@ -194,6 +208,11 @@ WINDOWS_BATCH = 16384           # the JAX engine's batch on its non-Pallas path
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12      # HBM3
 GATHER_TARGET_MS = 0.019        # the full-tier gather at 50% of its bound
+H100_F32_FLOPS = 67e12          # float32 outside the tensor cores (SXM, 700 W)
+# the basecaller engine's device batch at the HAC widths (models.crf.CrfConfig)
+CRF_CHUNKS, CRF_STEPS, CRF_STATE_LEN, CRF_BLANK = 1024, 800, 4, 2.0
+# the random weights' gains, as tests/test_torch_crf_decode.py scales its models
+CRF_GAINS = {"weight_gain": 3.0, "linear_gain": 8.0, "linear_bias": -1.0}
 
 
 def emit(obj: dict) -> None:
@@ -1799,6 +1818,135 @@ def phase_basecaller(tmp: str, fast5_dir: str, names: list) -> dict:
     return info
 
 
+def crf_model_dir(tmp: str) -> str:
+    """A Bonito model directory at the published HAC widths
+    (``models.crf.CrfConfig``'s defaults) with seeded random weights:
+    PyTorch's initialisation, scaled by ``CRF_GAINS`` so that the decode
+    emits moves."""
+    import torch
+
+    from nanoreviser_torch.models import crf
+
+    torch.manual_seed(SEED)
+    m = crf.CrfEncoder(crf.CrfConfig()).eval()
+    with torch.no_grad():
+        for p in list(m.convs.parameters()) + list(m.rnns.parameters()):
+            p.mul_(CRF_GAINS["weight_gain"])
+        m.linear.weight.mul_(CRF_GAINS["linear_gain"])
+        m.linear.bias.mul_(CRF_GAINS["linear_gain"]).add_(CRF_GAINS["linear_bias"])
+    path = os.path.join(tmp, "crf_model")
+    crf.save_bonito_model(m, path)
+    return path
+
+
+def phase_crf(tmp: str, fast5_dir: str, names: list) -> dict:
+    """The CRF decode kernel (csrc/crf_decode.cu) at the basecaller engine's
+    batch: fp16 move scores of 1,024 chunks x 800 steps x 256 states (the
+    HAC widths), seeded, of the encoder's form (tanh x 5). Holds the
+    kernel's labels and its moves' qualities (the fastq's) equal to
+    crf_decode_plain's on the same scores on the card (the counts that
+    differ are reported on failure; tests/test_torch_crf_decode.py allows
+    0.1 % of labels on its small shapes, since the kernel's exp, log and
+    sums round otherwise than torch's and a near-tie could go the other
+    way) and a second launch bit-identical to the first; times kernel
+    (wrapper included, CUDA events) and plain version; the bound is the
+    larger of
+    the scores' and outputs' bytes at the memory rate and the decode's
+    float32 operations (portbench/crf_yardstick.py's count) at the float32
+    peak. Then the main path: the reviser CLI in --revise_mode basecaller
+    --basecaller_model (fastq) over the 40 reads, under torch.profiler:
+    every read written, no failed read, and one crf_decode launch on the
+    card per batch beside the engine's eager warm-up batches before its
+    capture (the engine replays CUDA graphs, so launches are counted on the
+    device; the wrapper's own count, zeroed just before, is the warm-up
+    batches and the capture)."""
+    import torch
+
+    from nanoreviser_torch.cli.reviser import main as cli_main
+    from nanoreviser_torch.infer.basecall import WARMUP_BATCHES
+    from nanoreviser_torch.ops import crf_decode as dec
+    from nanoreviser_torch.utils import trace
+
+    t_len, n, n_states = CRF_STEPS, CRF_CHUNKS, 4 ** CRF_STATE_LEN
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    scores = (torch.tanh(torch.randn(t_len, n, 4 * n_states, device="cuda",
+                                     generator=g) * 2 - 0.5) * 5.0).half()
+    got = dec.crf_decode(scores, CRF_BLANK, CRF_STATE_LEN, True)
+    again = dec.crf_decode(scores, CRF_BLANK, CRF_STATE_LEN, True)
+    want = dec.crf_decode_plain(scores, CRF_BLANK, CRF_STATE_LEN, True)
+    torch.cuda.synchronize()
+    agree = got[0] == want[0]
+    moved = agree & (got[0] != 0)
+    qdiff = (got[1][moved].int() - want[1][moved].int()).abs()
+    share = float(agree.float().mean())
+    n_diff = int((~agree).sum())
+    q_max = int(qdiff.max()) if qdiff.numel() else 0
+    check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+          "crf_decode: two launches on the same scores differ")
+    check(n_diff == 0 and q_max == 0,
+          f"crf_decode against plain: {n_diff} labels differ (agreement "
+          f"{share:.6f}), the moves' qualities by up to {q_max}")
+    ms = cuda_ms(lambda: dec.crf_decode(scores, CRF_BLANK, CRF_STATE_LEN), reps=5)
+    plain_ms = cuda_ms(lambda: dec.crf_decode_plain(scores, CRF_BLANK, CRF_STATE_LEN),
+                       reps=1, warmup=0)
+    nbytes = scores.numel() * 2 + n * t_len        # scores in, labels out
+    ops = 12.0 * t_len * n_states * 5 * n
+    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    bound_ms, bound_by = max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+    del scores, got, again, want, agree, moved
+    torch.cuda.empty_cache()
+
+    model_dir = crf_model_dir(tmp)
+    out, failed = os.path.join(tmp, "crf_out"), os.path.join(tmp, "crf_failed.txt")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    was = trace.enable(True)
+    trace.take()
+    dec.CRF_DECODE.launches = 0
+    t0 = time.time()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            rc = cli_main(["-d", fast5_dir, "-o", out, "-F", "fastq",
+                           "--revise_mode", "basecaller", "--basecaller_model",
+                           model_dir, "--device", "cuda", "-e", failed,
+                           "--thread", "8"])
+            torch.cuda.synchronize()
+    finally:
+        took = trace.take()
+        trace.enable(was)
+    secs = time.time() - t0
+    wrapper_launches = dec.CRF_DECODE.launches
+    batches = took["counters"].get("basecall.batches", 0)
+    from torch.autograd import DeviceType
+
+    device_launches = sum(1 for e in prof.profiler.kineto_results.events()
+                          if e.device_type() == DeviceType.CUDA
+                          and "crf_decode" in e.name())
+    check(rc == 0 and not os.path.exists(failed), f"basecaller model mode: rc {rc}")
+    check(sorted(os.listdir(out)) == sorted(nm.split(".")[0] + "_out.fastq" for nm in names),
+          "basecaller model mode: one file per read")
+    check(batches > 0 and device_launches == batches + WARMUP_BATCHES,
+          f"crf_decode launched {device_launches} times on the card for {batches} "
+          f"batches and {WARMUP_BATCHES} eager warm-up batches")
+    info = {"phase": "crf", "chunks": n, "steps": t_len, "states": n_states,
+            "label_agreement": share,
+            "labels_differing": n_diff,
+            "quality_max_diff": q_max, "quality_differing": int((qdiff > 0).sum()),
+            "repeat_identical": True, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "main_path": {"reads": len(names), "seconds": secs, "batches": batches,
+                          "device_launches": device_launches,
+                          "wrapper_launches": wrapper_launches,
+                          "samples": took["counters"].get("basecall.samples", 0),
+                          "chunks": took["counters"].get("basecall.chunks", 0)}}
+    emit(info)
+    row = {"name": "crf_decode", "route": "cuda",
+           "source": "nanoreviser_torch/csrc/crf_decode.cu",
+           "replaces": dec.CRF_DECODE.replaces, "launches": device_launches,
+           "max_abs_err": q_max, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return row
+
+
 # runs the training CLI with its artifact writers logging (process, path)
 WRITE_LOGGER = """
 import os, sys
@@ -2295,7 +2443,7 @@ def main(argv: list) -> int:
         return dp_step_worker(argv[1:])
     only = argv[0] if argv else None
     check(argv in ([], ["--gather-only"], ["--cli-only"], ["--train-only"],
-                   ["--stack-only"]),
+                   ["--stack-only"], ["--crf-only"]),
           f"unknown arguments {argv}")
     info = phase_device()
     logs = phase_build()
@@ -2304,6 +2452,15 @@ def main(argv: list) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if only == "--train-only":
             phase_train(tmp)
+            print(nvidia_smi_line(), flush=True)
+            return 0
+        if only == "--crf-only":
+            from nanoreviser_torch.io.synthetic import write_synthetic_dir
+
+            fast5_dir = os.path.join(tmp, "fast5")
+            names = write_synthetic_dir(fast5_dir, N_READS, READ_BASES, seed=SEED)
+            crow = phase_crf(tmp, fast5_dir, names)
+            emit({"kernels": [crow]})
             print(nvidia_smi_line(), flush=True)
             return 0
         weights = make_weights(tmp)
@@ -2327,11 +2484,14 @@ def main(argv: list) -> int:
         launches = phase_e2e(tmp, weights, fast5_dir, names, gz_dir=gz_dir)
         torch.cuda.empty_cache()
         phase_basecaller(tmp, fast5_dir, names)
+        torch.cuda.empty_cache()
+        crow = phase_crf(tmp, fast5_dir, names)
+        torch.cuda.empty_cache()
         phase_train(tmp)
     rows = [grow] + srows
     for r in rows:
         r["launches"] = launches[r["name"]]
-    rows.append(wrow)
+    rows += [wrow, crow]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: r[k] for k in order} for r in rows]})

@@ -25,7 +25,12 @@ Counterpart of ``nanoreviser_tpu/cli/reviser.py``, with its flag surface
   ``infer.basecaller.rebasecall_read``, reads decoded on the thread pool
   that passthrough uses. A read whose rebasecall fails degrades to its own
   bases (in fastq, the embedded fastq trimmed 7/7) and is recorded in the
-  ``-e`` file; the output is byte-identical to the JAX package's.
+  ``-e`` file; the output is byte-identical to the JAX package's. With
+  ``--basecaller_model DIR`` (a Bonito CRF-CTC model directory) it runs
+  that model in this process instead (``infer.basecall.Basecaller`` on
+  ``--device``, the raw signals read by the prep pool's workers), with the
+  same output contract: each read's basecall trimmed ``[13:-12]``, in
+  fastq with a quality per base from its move's posterior.
 * The per-read files are written by one writer thread
   (``io.writers.FileWriter``), in bursts, while this thread goes on
   feeding the device; a read's printed line follows its write, in read
@@ -93,6 +98,11 @@ def get_args(argv=None):
     )
     p.add_argument("--basecaller_exe", default="./nanorevutils/utils/bin/basecaller")
     p.add_argument("--basecaller_config", default=None)
+    p.add_argument(
+        "--basecaller_model", default=None, metavar="DIR",
+        help="a Bonito CRF-CTC model directory (config.toml, weights_<n>.tar): "
+             "--revise_mode basecaller then runs it in this process on "
+             "--device instead of an external basecaller")
     p.add_argument(
         "--align", default="auto", choices=["auto", "reference", "center"],
         help="prediction-to-base alignment: 'auto' calibrates the window-"
@@ -277,6 +287,52 @@ def _main(args) -> int:
                     continue
                 yield fn, read, seq, qual
 
+        def basecaller_model_items():
+            """(fn, ReadData or None, seq, qual) from the CRF-CTC model of
+            ``--basecaller_model`` in this process (``infer.basecall``),
+            the raw signals read on the prep pool; a degraded read yields
+            its own bases with no quality."""
+            from ..infer import PrepPool
+            from ..infer.basecall import Basecaller
+
+            n_workers = min(max(1, args.thread), len(os.sched_getaffinity(0)))
+            with trace.span("cli.pool_spawn"):
+                pool = PrepPool(n_workers, args.basecall_group,
+                                args.basecall_subgroup)
+            try:
+                with trace.span("cli.engine_init"):
+                    engine = Basecaller(
+                        args.basecaller_model,
+                        device=_engine_device(args.device, rank, world),
+                        emit_quality=(args.output_format == "fastq"))
+                with trace.span("cli.pool_ready"):
+                    pool.ready()
+
+                def signals():
+                    for fn, sig, err in pool.stream_signals(
+                            args.fast5_base_dir, fast5_fns):
+                        if err is not None:
+                            report(fn, err)
+                            continue
+                        yield fn, sig
+
+                for fn, seq, qual in engine.basecall_stream(signals(),
+                                                            errors=failed):
+                    if seq is not None:
+                        yield fn, None, seq, qual
+                        continue
+                    try:
+                        read = get_read_data(
+                            os.path.join(args.fast5_base_dir, fn),
+                            args.basecall_group, args.basecall_subgroup)
+                    except Exception as exc:  # noqa: BLE001 — fails alone
+                        report(fn, exc)
+                        continue
+                    yield fn, read, read.bases, None
+            finally:
+                with trace.span("cli.pool_close"):
+                    pool.close()
+
         degraded_names: set[str] = set()
         n_failed_seen = 0
 
@@ -328,8 +384,11 @@ def _main(args) -> int:
             return action
 
         merged_records: list = []
-        items = {"model": model_items, "basecaller": basecaller_items,
-                 "passthrough": passthrough_items}[mode]()
+        if mode == "basecaller" and args.basecaller_model:
+            items = basecaller_model_items()
+        else:
+            items = {"model": model_items, "basecaller": basecaller_items,
+                     "passthrough": passthrough_items}[mode]()
         try:
             for fn, _, seq, qual in items:
                 with trace.span("cli.emit"):

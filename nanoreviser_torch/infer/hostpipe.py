@@ -9,6 +9,11 @@ so that only the small fields of a read (its bases, normalizers, chain
 values and escape counts) travel back through the pool's result pipe, with
 the worker's own seconds over the chunk.
 
+``stream_signals`` runs the basecaller's job on the same workers and
+slots instead (``signal.host_prep._pool_signal_one``): a read's whole raw
+int16 signal goes into the slot and its median and MAD x 1.4826 travel
+back, as a ``SignalRead``.
+
 Slot lifetime: ``stream`` yields a ``WireRead`` whose arrays view a slot;
 the view is valid until the caller asks for the next item, when the slot is
 recycled. ``StreamingReviser`` copies each read into its batch at once.
@@ -41,9 +46,11 @@ import numpy as np
 
 from .. import native
 from ..signal.host_prep import (
+    SignalRead,
+    _pool_chunk,
     _pool_init,
-    _pool_prep_chunk,
     _pool_prep_one,
+    _pool_signal_one,
     _slot_views,
     slot_layout,
 )
@@ -88,6 +95,12 @@ def _wire_from_slot(buf, layout: dict, small: tuple) -> WireRead:
     return WireRead(bases=bases, first_val=first_val, last_val=last_val,
                     pos0_first=pos0_first, pos0_last=pos0_last,
                     shift=shift, scale=scale, **v)
+
+
+def _signal_from_slot(buf, small: tuple) -> SignalRead:
+    n, shift, scale = small
+    return SignalRead(signal=np.frombuffer(buf, np.int16, n), shift=shift,
+                      scale=scale)
 
 
 class PrepPool:
@@ -194,15 +207,33 @@ class PrepPool:
         A yielded WireRead may view a slot that is recycled when the next
         item is asked for: copy it before advancing."""
         spec = (self.group, self.subgroup, self.slot_bases, self.slot_samples)
+        return self._stream(base_dir, fns, prefetch, _pool_prep_one, spec,
+                            lambda buf, small: _wire_from_slot(
+                                buf, self._layout, small))
+
+    def stream_signals(self, base_dir: str, fns, prefetch: int = 24):
+        """Yields (fn, SignalRead or None, error text or None) in input
+        order: each read's whole raw signal and its normalisers
+        (``signal.host_prep._pool_signal_one``), for the basecaller.
+
+        A yielded signal may view a slot that is recycled when the next
+        item is asked for: copy it before advancing."""
+        return self._stream(base_dir, fns, prefetch, _pool_signal_one, (),
+                            _signal_from_slot)
+
+    def _stream(self, base_dir: str, fns, prefetch: int, job, spec: tuple,
+                unpack):
+        """The ordered, bounded fan-out of ``job(path, buf, *spec)``, inline
+        or on the workers (``_pool_chunk``); ``unpack(buf, payload)`` turns
+        a payload left in a slot into the read."""
         if self._pool is None:
             for fn in fns:
-                payload, err, fb = _pool_prep_one(
-                    os.path.join(base_dir, fn), self._inline_buf, *spec)
+                payload, err, fb = job(os.path.join(base_dir, fn),
+                                       self._inline_buf, *spec)
                 self.native_fallbacks += fb
                 if isinstance(payload, tuple):
                     with trace.span("pool.unpack"):
-                        payload = _wire_from_slot(self._inline_buf, self._layout,
-                                                  payload)
+                        payload = unpack(self._inline_buf, payload)
                 yield fn, payload, err
             return
         free = collections.deque(range(len(self._slot_paths)))
@@ -211,8 +242,8 @@ class PrepPool:
         def submit(chunk_fns):
             with trace.span("pool.submit"):
                 slots = [free.popleft() if free else -1 for _ in chunk_fns]
-                fut = self._pool.apply_async(_pool_prep_chunk, (
-                    [os.path.join(base_dir, fn) for fn in chunk_fns],
+                fut = self._pool.apply_async(_pool_chunk, (
+                    job, [os.path.join(base_dir, fn) for fn in chunk_fns],
                     [self._slot_paths[s] if s >= 0 else None for s in slots],
                     *spec))
                 queue.append((chunk_fns, slots, fut))
@@ -226,8 +257,7 @@ class PrepPool:
                 self.native_fallbacks += fb
                 if isinstance(payload, tuple):
                     with trace.span("pool.unpack"):
-                        payload = _wire_from_slot(self._slot_maps[slot],
-                                                  self._layout, payload)
+                        payload = unpack(self._slot_maps[slot], payload)
                 yield fn, payload, err
                 if slot >= 0:
                     free.append(slot)      # recycled once the caller advances

@@ -47,7 +47,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import native
-from ..io.fast5 import ReadData, get_read_data
+from ..io import hdf5
+from ..io.fast5 import Fast5Error, ReadData, get_read_data
 from .features import BASE_COLOR_TABLE, ascii_codes
 from .segmentation import mad_normalizers_int16
 
@@ -479,19 +480,76 @@ def _pool_prep_one(path: str, buf, group: str, subgroup: str, cap_bases: int,
         return None, str(exc), _native_fallbacks - before
 
 
-def _pool_prep_to_slot(path: str, slot_path: str | None, *spec):
-    """``_pool_prep_one`` into the /dev/shm slot at ``slot_path`` (None:
-    no slot was free, the read travels pickled); ``spec`` is (group,
-    subgroup, cap_bases, cap_samples)."""
-    buf = _worker_slot(slot_path) if slot_path is not None else None
-    return _pool_prep_one(path, buf, *spec)
-
-
-def _pool_prep_chunk(paths: list, slot_paths: list, *spec) -> tuple[list, float]:
+def _pool_chunk(job, paths: list, slot_paths: list, *spec) -> tuple[list, float]:
     """A chunk of reads per task: one round trip through the pool's pipes
-    for several reads. Returns their results and this worker's
-    ``perf_counter`` seconds over them (decode, compact, encode, slot
-    write)."""
+    for several reads. ``job(path, buf, *spec)`` is ``_pool_prep_one`` or
+    ``_pool_signal_one``, ``buf`` the /dev/shm slot at each slot path
+    (None: no slot was free, the read travels pickled). Returns their
+    results and this worker's ``perf_counter`` seconds over them (decode,
+    compact or read, encode, slot write)."""
     t = time.perf_counter()
-    out = [_pool_prep_to_slot(p, s, *spec) for p, s in zip(paths, slot_paths)]
+    out = [job(p, _worker_slot(s) if s is not None else None, *spec)
+           for p, s in zip(paths, slot_paths)]
     return out, time.perf_counter() - t
+
+
+# ---- the basecaller's signal job (infer.basecall): a read's whole raw
+# signal, as int16 in a slot, with the normalisers of Bonito's med/MAD
+
+MAD_FACTOR = 1.4826
+
+
+@dataclass
+class SignalRead:
+    """A read's whole raw signal; the basecaller reads ``(signal - shift) /
+    scale``."""
+
+    signal: np.ndarray     # [S] int16, the whole raw signal
+    shift: float           # median
+    scale: float           # MAD x 1.4826 (1.0 where that is 0)
+
+    @property
+    def n_samples(self) -> int:
+        return len(self.signal)
+
+
+def read_raw_signal(path: str) -> np.ndarray:
+    """The int16 ``Signal`` of a single-read fast5's first read under
+    ``/Raw/Reads``."""
+    try:
+        with hdf5.File(path, "r") as f:
+            reads = f["/Raw/Reads/"]
+            sig = reads[reads.keys()[0] + "/Signal"][()]
+    except Exception as exc:  # noqa: BLE001
+        raise Fast5Error(f"no raw signal in the file ({exc})") from exc
+    sig = np.asarray(sig)
+    if sig.dtype != np.int16 or sig.ndim != 1 or len(sig) == 0:
+        raise Fast5Error(f"raw signal is not a non-empty int16 vector "
+                         f"({sig.dtype}, shape {sig.shape})")
+    return sig
+
+
+def signal_normalizers(sig: np.ndarray) -> tuple[float, float]:
+    """(median, MAD x 1.4826) of the whole read, exact (``segmentation.
+    mad_normalizers_int16``); a MAD of 0 scales by 1."""
+    shift, mad = mad_normalizers_int16(sig)
+    scale = mad * MAD_FACTOR
+    return shift, (scale if scale > 0 else 1.0)
+
+
+def _pool_signal_one(path: str, buf):
+    """One fast5's raw signal into ``buf`` (a slot's bytes, or None).
+    Returns (payload, error, 0): payload (n, shift, scale) when the signal
+    is in ``buf``, a ``SignalRead`` of its own array when there is no
+    ``buf`` or it is too small, None with the error text when the read
+    failed."""
+    try:
+        sig = read_raw_signal(path)
+        shift, scale = signal_normalizers(sig)
+        n = len(sig)
+        if buf is None or 2 * n > len(buf):
+            return SignalRead(sig, shift, scale), None, 0
+        buf[: 2 * n].view(np.int16)[:] = sig
+        return (n, shift, scale), None, 0
+    except Exception as exc:  # noqa: BLE001 — a bad read fails alone
+        return None, str(exc), 0
