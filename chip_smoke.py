@@ -5,14 +5,14 @@
     python3 chip_smoke.py --cli-only      # device, build, gather, e2e's CLI runs
     python3 chip_smoke.py --train-only    # device, build, train
     python3 chip_smoke.py --stack-only    # device, build, gather, stack, windows
-    python3 chip_smoke.py --crf-only      # device, build, crf
+    python3 chip_smoke.py --crf-only      # device, build, lstm, crf
 
 (``--dp-step`` runs one worker process of phase train's data-parallel
 step; the script starts those itself.)
 
 ``--gather-only`` times the window gather, ``--cli-only`` the CLI runs of
-phase e2e, ``--train-only`` the training path, ``--crf-only`` the CRF
-decode kernel and the basecaller's main path, and ``--stack-only`` the two
+phase e2e, ``--train-only`` the training path, ``--crf-only`` the LSTM
+and CRF decode kernels and the basecaller's main path, and ``--stack-only`` the two
 stack kernels (with the sha256 of their outputs), of whatever package sits
 beside this file, so a copy of it in an older checkout times that checkout
 the same way (fields a package lacks, such as the stack's cluster size,
@@ -125,6 +125,13 @@ Phases, each printing one JSON line:
              every read is rebasecalled and its file must hold the stub's
              fastq trimmed 13/13; without the binary, every read degrades to
              the embedded fastq trimmed 7/7, is listed in -e, and rc is 1.
+   lstm    - the LSTM kernel (csrc/lstm_layer.cu) at the basecaller
+             engine's batch (1,024 chunks x 800 steps, features 384): ptxas'
+             registers and spills, the clusters the card holds at once,
+             one layer in both directions against lstm_layer_plain (within
+             2^-9, two launches bit-identical), and ms of one layer and of
+             the five-layer stack beside the bound, the plain version and
+             cuDNN's nn.LSTM (library_ms).
    crf     - the CRF decode kernel (csrc/crf_decode.cu) at the basecaller
              engine's batch (1,024 chunks x 800 steps x 256 states, seeded
              fp16 scores of the encoder's form) against crf_decode_plain on
@@ -134,9 +141,11 @@ Phases, each printing one JSON line:
              decode's float32 operations at the float32 peak). Then the
              main path: --revise_mode basecaller --basecaller_model over
              the 40 reads in fastq (HAC widths, seeded random weights)
-             under torch.profiler: every read written, rc 0, and one
-             crf_decode launch on the card per batch (and per eager
-             warm-up batch before the engine's graph capture).
+             under torch.profiler: every read written, rc 0, one
+             crf_decode launch and five lstm_layer launches on the card per
+             batch (and per eager warm-up batch before the engine's graph
+             capture), the counter basecall.lstm_kernel_layers five a
+             batch, and no cuDNN RNN kernel.
 9. train   - the training path at the model's full width and the CLI's
              defaults (batch 512, T = 13): 8 synthetic reads of ~10k bases
              and a genome of their bases with ~2% substitutions and short
@@ -1839,6 +1848,114 @@ def crf_model_dir(tmp: str) -> str:
     return path
 
 
+def lstm_seeded(features: int, seed: int):
+    """An nn.LSTM(features, features) on the card in fp16 with PyTorch's
+    initialisation from ``seed`` scaled by CRF_GAINS' weight gain."""
+    import torch
+
+    torch.manual_seed(seed)
+    rnn = torch.nn.LSTM(features, features)
+    with torch.no_grad():
+        for w in rnn.parameters():
+            w.mul_(CRF_GAINS["weight_gain"])
+    return rnn.eval().cuda().half()
+
+
+def phase_lstm(logs: dict) -> dict:
+    """The LSTM kernel (csrc/lstm_layer.cu) at the basecaller engine's batch
+    (1,024 chunks x 800 steps, features 384): what ptxas reports for it,
+    the clusters the card holds at once for each chunks-a-cluster and the
+    one taken; one layer in both directions against lstm_layer_plain on the
+    card (max and mean |difference|, the share of elements that differ) and
+    two launches bit-identical; ms by CUDA events of one layer (its input
+    projection included; the projection alone beside it) and of the
+    five-layer stack with the encoder's directions, against the bound (the
+    LSTMs' FLOPs at the fp16 peak; the bytes of x, W and y are far below),
+    the plain version and cuDNN's nn.LSTM (``library_ms``, a yardstick the
+    port does not call; the stack as CrfEncoder.lstms runs it, flips
+    included)."""
+    import torch
+
+    from nanoreviser_torch.models import crf
+    from nanoreviser_torch.ops import lstm
+
+    cfg = crf.CrfConfig()
+    t_len, n, h = CRF_STEPS, CRF_CHUNKS, cfg.features
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = (torch.rand(t_len, n, h, device="cuda", generator=g) * 2 - 1).half()
+    rnns = [lstm_seeded(h, SEED + i) for i in range(cfg.n_layers)]
+    packed = [lstm.pack_lstm(r) for r in rnns]
+    p = packed[0]
+    check(lstm.lstm_route(h, "cuda") == "kernel", "features 384 must take the kernel")
+    agree = {}
+    for reverse in (False, True):
+        got = lstm.lstm_layer(x, p, reverse)
+        again = lstm.lstm_layer(x, p, reverse)
+        want = lstm.lstm_layer_plain(x, p, reverse)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), "lstm_layer: two launches differ")
+        diff = (got.float() - want.float()).abs()
+        agree["reverse" if reverse else "forward"] = {
+            "max_abs": diff.max().item(), "mean_abs": diff.mean().item(),
+            "share_differing": (diff > 0).float().mean().item()}
+        check(diff.max().item() <= 2 ** -9,
+              f"lstm_layer against plain: max |diff| {diff.max().item()}")
+        del got, again, want, diff
+
+    def stack_kernel():
+        y = x
+        for i, q in enumerate(packed):
+            y = lstm.lstm_layer(y, q, cfg.reverse(i))
+        return y
+
+    def stack_plain():
+        y = x
+        for i, q in enumerate(packed):
+            y = lstm.lstm_layer_plain(y, q, cfg.reverse(i))
+        return y
+
+    def stack_cudnn():
+        y = x
+        with torch.inference_mode():
+            for i, r in enumerate(rnns):
+                y = r(y.flip(0))[0].flip(0) if cfg.reverse(i) else r(y)[0]
+        return y
+
+    x_stem = x.permute(1, 2, 0).contiguous().permute(2, 0, 1)   # the stem's layout
+    layer_flops = 2.0 * t_len * n * 4 * h * 2 * h
+    layer_bound = layer_flops / H100_BF16_FLOPS * 1e3
+    with torch.inference_mode():
+        layer = {"ms": cuda_ms(lambda: lstm.lstm_layer(x, p, False), reps=5),
+                 "projection_ms": cuda_ms(lambda: lstm.input_projection(x, p), reps=5),
+                 "projection_stem_layout_ms": cuda_ms(
+                     lambda: lstm.input_projection(x_stem, p), reps=5),
+                 "bound_ms": layer_bound, "bound_by": "operations",
+                 "plain_ms": cuda_ms(lambda: lstm.lstm_layer_plain(x, p, False),
+                                     reps=1, warmup=0),
+                 "library_ms": cuda_ms(lambda: rnns[0](x), reps=3)}
+        stack = {"ms": cuda_ms(stack_kernel, reps=3),
+                 "bound_ms": layer_bound * cfg.n_layers, "bound_by": "operations",
+                 "plain_ms": cuda_ms(stack_plain, reps=1, warmup=0),
+                 "library_ms": cuda_ms(stack_cudnn, reps=3)}
+    ptxas = [ln.strip() for ln in logs.get("lstm_layer", "").splitlines()
+             if "lstm_layer_kernel" in ln or "registers" in ln or "spill" in ln]
+    info = {"phase": "lstm", "chunks": n, "steps": t_len, "features": h,
+            "ptxas": ptxas,
+            "active_clusters": {nc: lstm.active_clusters(nc) for nc in lstm.CLUSTER_CHUNKS},
+            "cluster_chunks": lstm.cluster_chunks(n), "against_plain": agree,
+            "layer": layer, "stack": stack}
+    emit(info)
+    del x, x_stem
+    torch.cuda.empty_cache()
+    return {"name": "lstm_layer", "route": "cuda",
+            "source": "nanoreviser_torch/csrc/lstm_layer.cu",
+            "replaces": lstm.LSTM_LAYER.replaces, "launches": None,
+            "max_abs_err": max(a["max_abs"] for a in agree.values()),
+            "ms": stack["ms"], "plain_ms": stack["plain_ms"],
+            "bound_ms": stack["bound_ms"], "bound_by": "operations",
+            "library_ms": stack["library_ms"]}
+
+
 def phase_crf(tmp: str, fast5_dir: str, names: list) -> dict:
     """The CRF decode kernel (csrc/crf_decode.cu) at the basecaller engine's
     batch: fp16 move scores of 1,024 chunks x 800 steps x 256 states (the
@@ -1864,6 +1981,7 @@ def phase_crf(tmp: str, fast5_dir: str, names: list) -> dict:
 
     from nanoreviser_torch.cli.reviser import main as cli_main
     from nanoreviser_torch.infer.basecall import WARMUP_BATCHES
+    from nanoreviser_torch.models import crf
     from nanoreviser_torch.ops import crf_decode as dec
     from nanoreviser_torch.utils import trace
 
@@ -1918,15 +2036,24 @@ def phase_crf(tmp: str, fast5_dir: str, names: list) -> dict:
     batches = took["counters"].get("basecall.batches", 0)
     from torch.autograd import DeviceType
 
-    device_launches = sum(1 for e in prof.profiler.kineto_results.events()
-                          if e.device_type() == DeviceType.CUDA
-                          and "crf_decode" in e.name())
+    device_names = [e.name() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA]
+    device_launches = sum("crf_decode" in nm for nm in device_names)
+    lstm_launches = sum("lstm_layer_kernel" in nm for nm in device_names)
+    cudnn_rnn = sum("rnn" in nm.lower() for nm in device_names)
     check(rc == 0 and not os.path.exists(failed), f"basecaller model mode: rc {rc}")
     check(sorted(os.listdir(out)) == sorted(nm.split(".")[0] + "_out.fastq" for nm in names),
           "basecaller model mode: one file per read")
     check(batches > 0 and device_launches == batches + WARMUP_BATCHES,
           f"crf_decode launched {device_launches} times on the card for {batches} "
           f"batches and {WARMUP_BATCHES} eager warm-up batches")
+    n_layers = crf.CrfConfig().n_layers
+    check(lstm_launches == n_layers * (batches + WARMUP_BATCHES) and cudnn_rnn == 0
+          and took["counters"].get("basecall.lstm_kernel_layers") == n_layers * batches,
+          f"lstm_layer launched {lstm_launches} times on the card for {batches} batches "
+          f"and {WARMUP_BATCHES} warm-up batches (counter "
+          f"{took['counters'].get('basecall.lstm_kernel_layers')}), cuDNN RNN kernels "
+          f"{cudnn_rnn}")
     info = {"phase": "crf", "chunks": n, "steps": t_len, "states": n_states,
             "label_agreement": share,
             "labels_differing": n_diff,
@@ -1936,6 +2063,9 @@ def phase_crf(tmp: str, fast5_dir: str, names: list) -> dict:
             "main_path": {"reads": len(names), "seconds": secs, "batches": batches,
                           "device_launches": device_launches,
                           "wrapper_launches": wrapper_launches,
+                          "lstm_device_launches": lstm_launches,
+                          "lstm_kernel_layers": took["counters"].get(
+                              "basecall.lstm_kernel_layers"),
                           "samples": took["counters"].get("basecall.samples", 0),
                           "chunks": took["counters"].get("basecall.chunks", 0)}}
     emit(info)
@@ -2459,8 +2589,9 @@ def main(argv: list) -> int:
 
             fast5_dir = os.path.join(tmp, "fast5")
             names = write_synthetic_dir(fast5_dir, N_READS, READ_BASES, seed=SEED)
+            lrow = phase_lstm(logs)
             crow = phase_crf(tmp, fast5_dir, names)
-            emit({"kernels": [crow]})
+            emit({"kernels": [crow, lrow]})
             print(nvidia_smi_line(), flush=True)
             return 0
         weights = make_weights(tmp)
@@ -2485,13 +2616,14 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         phase_basecaller(tmp, fast5_dir, names)
         torch.cuda.empty_cache()
+        lrow = phase_lstm(logs)
         crow = phase_crf(tmp, fast5_dir, names)
         torch.cuda.empty_cache()
         phase_train(tmp)
     rows = [grow] + srows
     for r in rows:
         r["launches"] = launches[r["name"]]
-    rows += [wrow, crow]
+    rows += [wrow, crow, lrow]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: r[k] for k in order} for r in rows]})

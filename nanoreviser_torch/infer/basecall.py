@@ -16,9 +16,12 @@ int16 signal and its median and MAD. Per read, on the calling thread:
   Each chunk's int16 samples and the read's shift, scale and padding go to
   a row of a pinned batch of ``batch_chunks`` rows;
 * a full batch goes to the card (``(x - shift) / scale``, zero in the
-  padding, the encoder in fp16 with f32 accumulation, ``ops.crf_decode``
-  in f32; on the card as replays of CUDA graphs captured when the engine
-  is made), and only each step's label (and, for fastq, its quality
+  padding, the encoder in fp16 with f32 accumulation, its LSTMs by the
+  route ``ops.lstm.lstm_route`` picks from ``features`` when the engine is
+  made: the hand-written kernel ``ops.lstm`` where its layout holds the
+  width, else cuDNN, and ``nn.LSTM`` on the CPU; ``ops.crf_decode`` in
+  f32; on the card as replays of CUDA graphs captured when the engine is
+  made), and only each step's label (and, for fastq, its quality
   character) comes back. Batches always have ``batch_chunks`` rows (the
   last one's unused rows hold old samples and are ignored), so a chunk's
   labels depend on its own samples only;
@@ -37,7 +40,9 @@ Traced (``utils.trace``): spans ``basecall.chunk`` (a read's chunks into
 the batch), ``basecall.submit`` (a batch to the card; inside it
 ``basecall.lstm``, the five LSTMs' launches), ``basecall.fetch_wait`` (a
 batch's labels), ``basecall.stitch`` (a read's labels into its bases);
-counters ``basecall.samples``, ``basecall.chunks``, ``basecall.batches``.
+counters ``basecall.samples``, ``basecall.chunks``, ``basecall.batches``,
+``basecall.lstm_kernel_layers`` (the layers a batch ran in the LSTM
+kernel).
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ import numpy as np
 import torch
 
 from ..models.crf import load_bonito_model
-from ..ops.crf_decode import crf_decode
+from ..ops import build, lstm
+from ..ops.crf_decode import CRF_DECODE, crf_decode
 from ..utils import trace
 
 BASES = np.frombuffer(b"NACGT", np.uint8)
@@ -103,6 +109,12 @@ class Basecaller:
         self.steps = cfg.steps(cfg.chunksize)
         self.model = module.to(self.device,
                                torch.float16 if self._cuda else torch.float32)
+        self.lstm_route = lstm.lstm_route(cfg.features, self.device)
+        self._packed = ([lstm.pack_lstm(rnn) for rnn in self.model.rnns]
+                        if self.lstm_route == "kernel" else [])
+        if self._cuda:      # the first batch's kernels, in one parallel build
+            build.build_all((CRF_DECODE.source,)
+                            + ((lstm.LSTM_LAYER.source,) if self._packed else ()))
         self._cols = torch.arange(cfg.chunksize, device=self.device)
         self._slots = [self._make_slot() for _ in range(MAX_IN_FLIGHT + 1)]
         self._graph = self._capture() if self._cuda else None
@@ -131,7 +143,11 @@ class Basecaller:
 
     @torch.inference_mode()
     def _lstms(self, h: torch.Tensor) -> torch.Tensor:
-        return self.model.lstms(h)
+        if not self._packed:
+            return self.model.lstms(h)
+        for i, p in enumerate(self._packed):
+            h = lstm.lstm_layer(h, p, self.cfg.reverse(i))
+        return h
 
     @torch.inference_mode()
     def _head(self, h: torch.Tensor):
@@ -150,8 +166,10 @@ class Basecaller:
         """One batch as three CUDA graphs on static buffers (the stem, the
         LSTMs, the head with the decode; three, so that the profiler can
         tell the LSTMs' kernels by their launch), after two eager batches
-        on a side stream. cuDNN launches ~16k kernels a batch, most of them
-        per step of the LSTMs: a replay launches them from the card."""
+        on a side stream. On the cuDNN route the LSTMs launch ~16k kernels
+        a batch, most of them per step: a replay launches them from the
+        card. On the kernel route they are five products and five kernel
+        launches."""
         b, c = self.batch, self.cfg.chunksize
         sig = torch.zeros((b, c), dtype=torch.int16, device=self.device)
         meta = torch.zeros((3, b), dtype=torch.float32, device=self.device)
@@ -182,6 +200,7 @@ class Basecaller:
 
     def _submit(self, slot: _Slot) -> None:
         trace.count("basecall.batches")
+        trace.count("basecall.lstm_kernel_layers", len(self._packed))
         if not self._cuda:
             labels, quals = self._device_step(slot.host_sig, slot.host_meta)
             slot.out_labels.copy_(labels)
