@@ -27,25 +27,6 @@ Phases, each printing one JSON line:
              g++ beside them, and reports what ptxas says and the count of
              HGMMA (wgmma) and HMMA (mma.sync) instructions in the stack
              library's SASS (cuobjdump -sass).
-   probe   - the stack's weight stream alone (csrc/stream_probe.cu): at
-             one block per SM with stack_full's shared memory at T = 11,
-             each warp streams 80 KB of a model's packed l3_r through
-             a ring of 8 KB, by per-lane cp.async, by one bulk copy per 1
-             or 2 KB fill, and by bulk copies multicast over clusters of 2,
-             4 and 8; every block's acknowledged words must equal the
-             source's; per variant the L2 read rate, each SM's fill rate in
-             bytes per SM clock (clocks.sm sampled beside the window) and
-             cudaOccupancyMaxActiveClusters. Then (csrc/mma_probe.cu) at
-             layer 3's shape (512 gate columns, 32 windows, 20 k16 tiles,
-             operands in shared memory): (a) the split layers' mma.sync
-             loop, (b) wgmma m64n16k16 (two sharing A) and m64n32k16 from
-             two warpgroups, SM clocks a step of each and their sums
-             against the f64 reference, (c) the f32 sums of (b) bit by bit
-             against (a)'s, and the rule that chose the design (wgmma at
-             1.5x or more); (d) one producer warp filling one 48 or 64 KB
-             ring per block with per-lane cp.async or cp.async.bulk fills
-             of 8-32 KB (acknowledged words checked), each SM's fill rate
-             in bytes per SM clock.
 3. gather  - packs one full-tier batch (196,608 windows) from synthetic
              reads, decodes it on the card, and holds the window-gather
              kernel bit-exact against its plain version on the card and on
@@ -421,163 +402,6 @@ def sass_counts(lib: str) -> dict:
     out = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
                          timeout=300, check=True).stdout
     return {"HGMMA": out.count("HGMMA"), "HMMA": out.count("HMMA")}
-
-
-def phase_probe() -> dict:
-    """The weight-stream probe (csrc/stream_probe.cu): each variant's L2
-    read rate, each SM's fill rate in bytes per SM clock (clocks.sm sampled
-    beside the window) and the resident clusters at each size."""
-    import torch
-
-    from nanoreviser_torch.models import ReviserConfig, init_reviser_params
-    from nanoreviser_torch.models.fused import fold_inference_params
-    from nanoreviser_torch.models.reviser import randomize_inference_stats
-    from nanoreviser_torch.ops import reviser_kernel as rk
-    from nanoreviser_torch.ops import stream_probe as sp
-
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(SEED)
-    p = randomize_inference_stats(
-        init_reviser_params(gen, ReviserConfig(window=WINDOW, n_classes=6)), gen)
-    packed = rk.pack_full_weights(rk.stack_models(
-        [rk.pack_stack_weights(fold_inference_params(p), WINDOW)]))
-    src = torch.tensor(packed["l3_r"][0], dtype=torch.bfloat16, device=dev).contiguous()
-    want = sp.expected_acks(src)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    smem = rk.stack_smem_bytes("stack_full", WINDOW)   # one block an SM
-    variants = [(0, 1, 1024), (1, 1, 1024), (1, 1, 2048)] + [
-        (2, c, f) for c in (2, 4, 8) for f in (1024, 2048)]
-    rows = []
-    with SmClocks() as clocks:
-        for v, c, f in variants:
-            clusters = sp.active_clusters(c, f, smem)
-            n_ctas = sms if c == 1 else clusters * c
-            out = torch.zeros(n_ctas * 256, dtype=torch.int32, device=dev)
-            reps = 101                           # odd: the acks are checkable
-            ms0 = cuda_ms(lambda: sp.launch(v, c, f, n_ctas, smem, src, reps, out),
-                          reps=1)
-            reps = max(101, int(300.0 / ms0 * 101)) | 1     # ~0.3 s a launch
-            ms, clk = timed_window(
-                lambda: sp.launch(v, c, f, n_ctas, smem, src, reps, out), 1, clocks)
-            got = out.view(n_ctas, 256).cpu().numpy()
-            check(bool((got == want[None]).all()),
-                  f"probe variant {v} (C={c}, F={f}): acknowledged words differ")
-            per_cta = sp.source_bytes() * reps          # bytes each SM receives
-            sec = ms * 1e-3
-            rows.append({
-                "variant": v, "what": sp.VARIANTS[v], "cluster": c, "fill_bytes": f,
-                "active_clusters": clusters, "ctas": n_ctas, "reps": reps, "ms": ms,
-                **clk,
-                "l2_tb_per_s": n_ctas * per_cta / c / sec / 1e12,
-                "sm_fill_tb_per_s": n_ctas * per_cta / sec / 1e12,
-                "per_sm_bytes_per_clk": (per_cta / sec / (clk["sm_mhz"] * 1e6)
-                                         if clk["sm_mhz"] else None)})
-        products = probe_products(dev, sms, smem, clocks)
-        fills = probe_fills(dev, sms, smem, clocks)
-    base = rows[0]["per_sm_bytes_per_clk"]
-    ratio = {f"C={r['cluster']},F={r['fill_bytes']}":
-             r["per_sm_bytes_per_clk"] / base
-             for r in rows if r["variant"] == 2 and base and r["per_sm_bytes_per_clk"]}
-    info = {"phase": "probe", "sms": sms, "smem": smem,
-            "source_bytes": sp.source_bytes(), "rows": rows,
-            "multicast_fill_rate_over_cp_async": ratio, **products,
-            "fills": fills, "nvidia_smi": nvidia_smi_line()}
-    emit(info)
-    return info
-
-
-def _calibrated(launch, target_ms: float = 200.0, start: int = 64) -> int:
-    """An odd count n for launch(n) to take about target_ms."""
-    ms0 = cuda_ms(lambda: launch(start), reps=1)
-    return max(start, int(target_ms / max(ms0, 1e-3) * start)) | 1
-
-
-def probe_products(dev, sms: int, smem: int, clocks) -> dict:
-    """The split layers' products at layer 3's shape (csrc/mma_probe.cu),
-    one block per SM, operands in shared memory: (a) the split layers'
-    mma.sync loop, (b) wgmma m64n16k16 (two sharing A) and m64n32k16 from
-    two warpgroups; SM clocks per step of each (clocks.sm sampled beside
-    the window) and (c) the f32 sums of (b) bit by bit against (a)'s; the
-    rule of the redesign: wgmma at 1.5x or more per unit of work takes it."""
-    import torch
-
-    from nanoreviser_torch.ops import mma_probe as mp
-
-    w, x = mp.operands(SEED)
-    ref = mp.reference(w, x)
-    pk = {k: v.to(dev) for k, v in mp.packed(w, x).items()}
-    operands = {0: ("mma_w", "mma_x"), 1: ("wgmma_w", "wgmma_x"),
-                2: ("wgmma_w", "wgmma_x")}
-    macs = mp.COLS * mp.WINDOWS * 16 * mp.K_TILES
-    sums, rows = {}, []
-    for v, (kw, kx) in operands.items():
-        out = torch.zeros(sms * mp.COLS * mp.WINDOWS, device=dev)
-        launch = lambda n: mp.launch_mma(v, sms, smem, pk[kw], pk[kx], n, out)
-        launch(1)                                    # one chain: the sums
-        torch.cuda.synchronize()
-        got = out.view(sms, mp.COLS, mp.WINDOWS).cpu()
-        check(bool((got == got[:1]).all()), f"mma probe {v}: blocks disagree")
-        sums[v] = got[0]
-        err = float((got[0].double() - torch.from_numpy(ref)).abs().max())
-        check(err <= 1e-3, f"mma probe {v}: max |sum - f64| {err}")
-        steps = _calibrated(launch)
-        ms, clk = timed_window(lambda: launch(steps), 1, clocks)
-        per_step = (ms * 1e-3 * clk["sm_mhz"] * 1e6 / steps) if clk["sm_mhz"] else None
-        rows.append({"variant": v, "what": mp.VARIANTS[v], "ctas": sms, "steps": steps,
-                     "ms": ms, **clk, "max_abs_err_vs_f64": err,
-                     "sm_clocks_per_step": per_step,
-                     "sm_clocks_per_1kb_tile_per_warp": (per_step / 40 if per_step else None),
-                     "macs_per_sm_clock": macs / per_step if per_step else None})
-    a = rows[0]["sm_clocks_per_step"]
-    speedup = {f"n{16 if r['variant'] == 1 else 32}":
-               (a / r["sm_clocks_per_step"] if a and r["sm_clocks_per_step"] else None)
-               for r in rows[1:]}
-    bit = {f"n{16 if v == 1 else 32}": int((sums[v].view(torch.int32)
-                                           != sums[0].view(torch.int32)).sum())
-           for v in (1, 2)}
-    best = max((s for s in speedup.values() if s), default=0.0)
-    return {"products": rows,
-            "bit_check": {"accumulators": mp.COLS * mp.WINDOWS,
-                          "differing_from_mma_sync": bit},
-            "wgmma_speedup_per_unit_of_work": speedup,
-            "rule": {"threshold": 1.5, "best": best,
-                     "design": "A (wgmma)" if best >= 1.5 else "B (mma.sync, producer warp)"}}
-
-
-def probe_fills(dev, sms: int, smem: int, clocks) -> list:
-    """Weight fills of one 48 or 64 KB ring per block from one producer
-    warp (csrc/mma_probe.cu): per-lane cp.async with
-    cp.async.mbarrier.arrive and one cp.async.bulk per fill, fills of 8-32
-    KB; every block's
-    acknowledged words checked; each SM's fill rate in bytes per SM
-    clock."""
-    import numpy as np
-    import torch
-
-    from nanoreviser_torch.ops import mma_probe as mp
-
-    rng = np.random.default_rng(SEED + 4)
-    nbytes = mp.fill_source_bytes()
-    src = torch.tensor(rng.integers(-2**31, 2**31, nbytes // 4), dtype=torch.int32,
-                       device=dev)
-    rows = []
-    for v in (0, 1):
-        for f, ring in mp.FILL_SHAPES:
-            want = mp.fill_acks(src, f)
-            out = torch.zeros(sms * 256, dtype=torch.int32, device=dev)
-            launch = lambda n: mp.launch_fill(v, f, ring, sms, smem, src, n, out)
-            reps = _calibrated(launch, start=65)
-            ms, clk = timed_window(lambda: launch(reps), 1, clocks)
-            got = out.view(sms, 256).cpu().numpy()
-            check(bool((got == want[None]).all()),
-                  f"fill probe variant {v} ({f} B): acknowledged words differ")
-            sec = ms * 1e-3
-            rows.append({"variant": v, "what": mp.FILL_VARIANTS[v], "fill_bytes": f,
-                         "ring_bytes": ring, "ctas": sms, "reps": reps, "ms": ms,
-                         **clk, "l2_tb_per_s": sms * nbytes * reps / sec / 1e12,
-                         "per_sm_bytes_per_clk": (nbytes * reps / sec / (clk["sm_mhz"] * 1e6)
-                                                  if clk["sm_mhz"] else None)})
-    return rows
 
 
 def phase_gather(tmp: str, weights):
@@ -2577,8 +2401,6 @@ def main(argv: list) -> int:
           f"unknown arguments {argv}")
     info = phase_device()
     logs = phase_build()
-    if only is None:
-        phase_probe()
     with tempfile.TemporaryDirectory() as tmp:
         if only == "--train-only":
             phase_train(tmp)

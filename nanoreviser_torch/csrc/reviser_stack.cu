@@ -165,7 +165,7 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 //    fill, loads its two tiles' B fragments into registers and releases
 //    the slot at once. (Layer 3's two groups a warp run one after the
 //    other: with their k chains interleaved on one pair of A fragments the
-//    accumulators of both spilled at 168 registers.) (A probe, mma_probe.cu,
+//    accumulators of both spilled at 168 registers.) (A probe kernel
 //    found wgmma no faster than this mma.sync loop at 32 windows: with the
 //    weights as its 64-row A operand every product re-reads its A tile
 //    from shared memory. Its fills from one producer warp peak with 16 KB
@@ -189,8 +189,8 @@ __device__ __forceinline__ void logits_out(const float* fe, const bf16* fow,
 // order the block consumes them (pack_full_weights): layer 1 per warp,
 // each lane copying its own 32 bytes of every 1 KB tile into its own slice
 // of a per-warp ring with cp.async, 2S - 1 tiles ahead; layers 2-4 per
-// 16 KB fill of the producer's ring. (A probe of the stream,
-// stream_probe.cu, found TMA bulk copies of 1-2 KB fills, multicast or
+// 16 KB fill of the producer's ring. (A probe of the
+// stream found TMA bulk copies of 1-2 KB fills, multicast or
 // not, slower per SM than per-lane copies: so the split, and not
 // multicast, is what cuts the bytes per window.) The conv and head
 // weights are read once per block (once per pair of m-tiles for the

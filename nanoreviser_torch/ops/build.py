@@ -30,8 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("window_gather", "reviser_stack", "stream_probe", "mma_probe",
-           "crf_decode", "lstm_layer")
+SOURCES = ("window_gather", "reviser_stack", "crf_decode", "lstm_layer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

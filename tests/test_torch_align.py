@@ -33,17 +33,7 @@ from nanoreviser_tpu.align import labels as jax_labels
 from nanoreviser_tpu.align import sam as jax_sam
 from nanoreviser_tpu.align import sw as jax_sw
 from tests.torch_jax_native import jax_native  # noqa: F401 (fixture)
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Tier-1 runs 6 test processes on one host; torch's default of one
-    thread per core oversubscribes it (a 1.3 s test took 61 s under 6
-    workers), so each test here runs torch on 2 threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 def _mutate(rng, seq, sub, ins, dele):

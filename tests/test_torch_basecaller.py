@@ -27,6 +27,7 @@ from nanoreviser_torch.io.synthetic import write_synthetic_dir
 from nanoreviser_torch.io.writers import format_read_fasta, format_read_fastq
 from nanoreviser_tpu.infer import basecaller as jax_bc
 from nanoreviser_tpu.infer.merge import revision_stats as jax_revision_stats
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 PAD13, PAD12 = "N" * 13, "N" * 12
 

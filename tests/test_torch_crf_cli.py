@@ -12,7 +12,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 import torch_crf_reference as ref
 from nanoreviser_torch.cli.reviser import main as cli_main
@@ -20,17 +19,7 @@ from nanoreviser_torch.io import hdf5
 from nanoreviser_torch.io.synthetic import write_synthetic_dir
 from nanoreviser_torch.models import crf
 from test_torch_crf_decode import CFG, model, ref_cfg
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tier-1 runs 6 test processes on one host; torch's default of one
-    thread per core oversubscribes it (these small steps took 10x longer
-    under 2 workers), so each test here runs torch on 1 thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 @pytest.fixture(scope="module")

@@ -29,19 +29,9 @@ from nanoreviser_torch.models import crf
 from nanoreviser_torch.ops import crf_decode as dec
 from nanoreviser_torch.signal.host_prep import SignalRead, signal_normalizers
 from nanoreviser_torch.utils import trace
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 CFG = crf.CrfConfig(features=16, state_len=2, chunksize=400, overlap=60)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tier-1 runs 6 test processes on one host; torch's default of one
-    thread per core oversubscribes it (these small steps took 10x longer
-    under 2 workers), so each test here runs torch on 1 thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def ref_cfg(cfg):

@@ -22,6 +22,7 @@ from nanoreviser_torch.io.synthetic import write_synthetic_dir
 from nanoreviser_torch.models import ReviserConfig, init_reviser_params, save_keras_weights
 from nanoreviser_torch.models.reviser import randomize_inference_stats
 from nanoreviser_tpu.dist import shard_files as jax_shard_files
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,7 +79,7 @@ def test_two_process_cli_merged_output_matches_one_process(tmp_path):
          "-e", str(tmp_path / f"failed_two{k}.txt"),
          "--coordinator_address", coord, "--num_processes", "2",
          "--process_id", str(k)],
-        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for k in range(2)]
     try:

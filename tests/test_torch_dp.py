@@ -1,7 +1,7 @@
 """Data-parallel training over processes vs one process and the JAX package.
 
-Two worker processes (this file run as a script: gloo on localhost, torch on
-2 threads each, ``--device cpu``) are launched once for the module. Each
+Two worker processes (this file run as a script: gloo on localhost, one torch
+thread each, ``--device cpu``) are launched once for the module. Each
 trains on its slice of the same global batches, and the tests read what
 they wrote:
 
@@ -42,19 +42,11 @@ from nanoreviser_torch.models.reviser import randomize_inference_stats
 from nanoreviser_torch.parallel import choose_backend, make_mesh, shard_params
 from nanoreviser_torch.train.step import (
     is_trained, keras_adam, make_train_step, param_leaves, params_to_torch)
+from tests.torch_threads import one_torch_thread, use_one_thread  # noqa: F401 (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, BATCH, N_WINDOWS, WORLD = 5, 32, 100, 2
 STEP_WEIGHT = np.array([1, 1, 1, 1, 1, 0, 0, 0], np.float64)   # rank 1: 3 pads
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Tier-1 runs 6 test processes on one host: torch on 2 threads each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _slice(mesh, n):
@@ -152,7 +144,7 @@ def _all_runs(mesh) -> dict:
 def _worker(coord: str, world: int, rank: int, out_dir: str) -> None:
     from nanoreviser_torch import dist
 
-    torch.set_num_threads(2)
+    use_one_thread()
     dist.initialize(coord, world, rank)
     mesh = make_mesh("cpu")
     res = _all_runs(mesh)
@@ -174,18 +166,15 @@ def runs(tmp_path_factory):
     """(rank 0's results, rank 1's, one process's on the global batches)."""
     out = tmp_path_factory.mktemp("dp")
     coord = f"127.0.0.1:{_free_port()}"
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH=REPO)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), coord, str(WORLD), str(k), str(out)],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for k in range(WORLD)]
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
     try:
         one = _all_runs(None)
         logs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
-        torch.set_num_threads(n)
         for p in procs:
             if p.poll() is None:
                 p.kill()

@@ -33,6 +33,7 @@ from nanoreviser_torch.models.reviser import randomize_inference_stats
 from nanoreviser_torch.ops.reviser_kernel import stack_logits_plain
 from nanoreviser_torch.ops.window_gather import window_gather_plain
 from nanoreviser_torch.signal import compact_read_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 BATCH, BLOCK = 2048, 128
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

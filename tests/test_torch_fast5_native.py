@@ -64,6 +64,7 @@ from nanoreviser_torch.io.synthetic import (
     EVENT_DTYPE, synthetic_read_arrays, write_synthetic_dir, write_synthetic_fast5)
 from nanoreviser_torch.signal import host_prep
 from tests.torch_jax_native import jax_native  # noqa: F401 (fixture)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 GROUP = "/Analyses/Basecall_1D_000"
 EVENTS = GROUP + "/BaseCalled_template/Events"

@@ -27,6 +27,7 @@ from nanoreviser_torch.ops.window_gather import (
     window_gather,
     window_gather_plain,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 def _rows(n_rows, s_cap, seed, lo=64):

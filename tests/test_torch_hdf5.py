@@ -12,6 +12,7 @@ import pytest
 
 from nanoreviser_torch.io import hdf5
 from nanoreviser_torch.io.synthetic import EVENT_DTYPE
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 def _events(n, rng):

@@ -23,6 +23,7 @@ import nanoreviser_torch.io as tio
 import nanoreviser_torch.signal.host_prep as tprep
 from nanoreviser_torch.io.synthetic import write_synthetic_dir
 from nanoreviser_torch.signal.segmentation import mad_normalizers_int16
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 @pytest.fixture(scope="module")

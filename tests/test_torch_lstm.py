@@ -20,17 +20,9 @@ from nanoreviser_torch.models import crf
 from nanoreviser_torch.ops import lstm
 from nanoreviser_torch.signal.host_prep import SignalRead, signal_normalizers
 from nanoreviser_torch.utils import trace
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 LSTM_GAIN = 3.0     # the models' LSTM weights: PyTorch's bounds x 3
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tier-1 runs 6 test processes on one host: one torch thread each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def seeded_lstm(h: int, seed: int) -> nn.LSTM:

@@ -46,15 +46,7 @@ from nanoreviser_torch.train.step import (
 from nanoreviser_tpu.models.reviser import ReviserConfig as JaxConfig
 from nanoreviser_tpu.train.step import keras_adam as jax_adam
 from nanoreviser_tpu.train.step import make_multi_step as jax_make_multi_step
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Tier-1 runs 6 test processes on one host: torch on 2 threads each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 T, B, LR = 5, 16, 1e-3

@@ -32,6 +32,7 @@ from nanoreviser_torch.infer import wire
 from nanoreviser_torch.io import get_read_data
 from nanoreviser_torch.io.synthetic import write_synthetic_dir
 from nanoreviser_torch.signal import host_prep
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 @pytest.fixture(scope="module")

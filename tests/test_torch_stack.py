@@ -24,6 +24,7 @@ from nanoreviser_tpu.ops import reviser_kernel as jrk
 from nanoreviser_torch.models.fused import fold_inference_params
 from nanoreviser_torch.models.reviser import randomize_inference_stats
 from nanoreviser_torch.ops import reviser_kernel as rk
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 T = 11
 

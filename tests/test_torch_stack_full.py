@@ -17,11 +17,9 @@ Here, with no card:
 * the engine's kernel weights leave the CPU path unchanged: with the packed
   products present, ``stack_logits_full`` on CPU tensors is still the bf16
   plain chain and launches no kernel;
-* the product probe's operands (``ops/mma_probe.py``): its ``wgmma`` A
-  tiles (``wgmma_a_tiles`` over ``gate_rows``) and core-matrix
-  activations, read back as the descriptors address them, and its
-  ``mma.sync`` fragments, multiplied as the kernels' outputs are mapped,
-  give the probe's f64 reference.
+* ``csrc/`` holds only the kernels the program launches: its sources are
+  ``build.SOURCES``, and each is the source of a ``build.Kernel`` that a
+  module of ``ops/`` declares.
 """
 
 import math
@@ -34,6 +32,7 @@ from nanoreviser_torch.models import ReviserConfig, init_reviser_params
 from nanoreviser_torch.models.fused import fold_inference_params
 from nanoreviser_torch.models.reviser import randomize_inference_stats
 from nanoreviser_torch.ops import reviser_kernel as rk
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 TILE = 512          # bf16 of one streamed LSTM weight tile (kTile)
 LAYERS = {          # key: (hidden, segments of the gate product per direction)
@@ -297,57 +296,23 @@ def test_stack_profile_instruments_the_kernel_source():
             "  lstm_layer<kH1, 1, 0, 1, 2 * S>(", "  lstm_layer<kH1, 1, 0, 1,  2 * S>("))
 
 
-def test_stream_probe_acknowledged_words():
-    """The probe's check (ops/stream_probe.py): thread 32 w + l of a block
-    holds the XOR of the 8 words lane l reads of each of warp w's 80 tiles
-    (16 bytes of each half), recounted here word by word."""
-    from nanoreviser_torch.ops import stream_probe
-
-    rng = np.random.default_rng(3)
-    src = torch.tensor(rng.integers(-2**15, 2**15, 8 * 80 * 512), dtype=torch.int16)
-    got = stream_probe.expected_acks(src.view(torch.bfloat16))
-    words = src.view(torch.int32).numpy()
-    for w, lane in ((0, 0), (3, 5), (7, 31)):
-        want = 0
-        for tile in range(80):
-            base = (w * 80 + tile) * 256
-            for half in range(2):
-                for k in range(4):
-                    want ^= int(words[base + half * 128 + lane * 4 + k]) & 0xFFFFFFFF
-        assert int(got[w * 32 + lane]) & 0xFFFFFFFF == want
+PROGRAM_KERNELS = ("window_gather", "reviser_stack", "crf_decode", "lstm_layer")
 
 
-def test_mma_probe_operands_read_back_as_the_kernels_address_them():
-    """The product probe's packing (ops/mma_probe.py), emulated as its
-    kernels read it: each wgmma A tile through its descriptor (core
-    matrices of 8 rows x 16 bytes, the row groups 128 bytes apart, the k
-    halves 1024), the activations through theirs ([k/8][32][8]: rows 16
-    bytes apart, k halves 512), m tile 2u + p's rows mapped to gate 2p + h
-    of unit 32u + 8w + j as probe_wgmma stores them; and the mma.sync
-    fragments as probe_mma_sync reads them (warp w's groups 2w, 2w + 1).
-    Both equal the f64 reference exactly."""
-    from nanoreviser_torch.ops import mma_probe as mp
+@pytest.mark.parametrize("source", PROGRAM_KERNELS)
+def test_csrc_holds_only_the_programs_kernels(source):
+    """Every ``csrc/*.cu`` is built by ``build_all`` and launched through a
+    ``build.Kernel`` of ``ops/``: a source that no kernel of the program
+    launches has no place there."""
+    import importlib
+    import pkgutil
 
-    w, x = mp.operands(11)
-    ref = mp.reference(w, x)
-    pk = mp.packed(w, x)
-    a_tiles = pk["wgmma_w"].double().numpy()             # [RES, 8, 1024]
-    xc = pk["wgmma_x"].double().numpy().reshape(-1)      # [40 * 32 * 8]
-    r, k = np.arange(64)[:, None], np.arange(16)[None, :]
-    a_pos = ((k // 8) * 8 + r // 8) * 64 + (r % 8) * 8 + k % 8
-    n = np.arange(32)[None, :]
-    got = np.zeros((mp.COLS, mp.WINDOWS))
-    for mt in range(8):
-        d = sum(a_tiles[kt % mp.RES, mt][a_pos]
-                @ xc[kt * 2 * 256 + (k.T // 8) * 256 + n * 8 + k.T % 8]
-                for kt in range(mp.K_TILES))
-        rho = np.arange(64)
-        gate = 2 * (mt % 2) + (rho % 16) // 8
-        unit = 32 * (mt // 2) + 8 * (rho // 16) + rho % 8
-        got[gate * 128 + unit] = d
-        assert np.array_equal(mp.gate_rows(128)[mt], gate * 128 + unit)
-    assert np.array_equal(got, ref)
-    # the mma.sync fragments: group u = 2 warp + q, tile kt % RES
-    frags = pk["mma_w"].float().reshape(-1)
-    fr = _read_gates(frags, mp.HIDDEN, [mp.RES], 0, ring=False)[0]   # [16 RES, 512]
-    assert torch.equal(fr, torch.tensor(w))
+    from nanoreviser_torch import ops
+    from nanoreviser_torch.ops import build
+
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(build.SOURCES)
+    assert sorted(build.SOURCES) == sorted(PROGRAM_KERNELS)
+    kernels = [k for m in pkgutil.iter_modules(ops.__path__)
+               for k in vars(importlib.import_module(f"{ops.__name__}.{m.name}")).values()
+               if isinstance(k, build.Kernel)]
+    assert source in {k.source for k in kernels}

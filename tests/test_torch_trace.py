@@ -30,6 +30,7 @@ from nanoreviser_torch.io.synthetic import write_synthetic_dir
 from nanoreviser_torch.models import ReviserConfig, init_reviser_params, save_keras_weights
 from nanoreviser_torch.models.reviser import randomize_inference_stats
 from nanoreviser_torch.utils import trace
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 BAD = "read_0003_not_hdf5.fast5"
 CLI_SPANS = ("cli.list", "cli.pool_spawn", "cli.engine_init", "cli.pool_ready",

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from nanoreviser_torch.io.synthetic import write_synthetic_dir
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 STUB = f"""#!{sys.executable}
 import os, sys
@@ -37,17 +38,6 @@ with open(opts["-o"], "w") as fp:
     fp.write("@SQ\\tSN:chr\\tLN:1000000\\n")
     fp.write("r\\t0\\tchr\\t1\\t60\\t" + str(len(seq)) + "M\\t*\\t0\\t0\\t" + seq + "\\t*\\n")
 """
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Tier-1 runs 6 test processes on one host; torch's default of one
-    thread per core oversubscribes it (a 1.3 s test took 61 s under 6
-    workers), so each test here runs torch on 2 threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mutate(rng, seq, sub=0.02, ins=0.004, dele=0.004):
@@ -315,7 +305,7 @@ def test_two_process_cli_equals_one_process(reads, tmp_path):
     coord = f"127.0.0.1:{_free_port()}"
     log = tmp_path / "writes.log"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, WRITE_LOG=str(log), OMP_NUM_THREADS="2", PYTHONPATH=repo)
+    env = dict(os.environ, WRITE_LOG=str(log), PYTHONPATH=repo)
     procs = [subprocess.Popen(
         [sys.executable, "-c", WRITE_LOGGER, *run_flags("two"),
          "--coordinator_address", coord, "--num_processes", "2", "--process_id", str(k)],

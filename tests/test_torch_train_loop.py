@@ -22,17 +22,7 @@ from nanoreviser_torch.models import ReviserConfig, init_reviser_params
 from nanoreviser_torch.train import data as port_data
 from nanoreviser_tpu.models.reviser import ReviserConfig as JaxConfig
 from nanoreviser_tpu.train import data as jax_data
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Tier-1 runs 6 test processes on one host; torch's default of one
-    thread per core oversubscribes it (a 1.3 s test took 61 s under 6
-    workers), so each test here runs torch on 2 threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 T, BATCH = 5, 32

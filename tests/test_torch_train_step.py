@@ -52,17 +52,7 @@ from nanoreviser_torch.train.step import (
     make_train_step,
     params_to_torch,
 )
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Tier-1 runs 6 test processes on one host; torch's default of one
-    thread per core oversubscribes it (a 1.3 s test took 61 s under 6
-    workers), so each test here runs torch on 2 threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 T, B, LR = 5, 24, 1e-3

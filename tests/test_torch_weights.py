@@ -36,6 +36,7 @@ from nanoreviser_torch.models.fused import (
     signal_branch_apply,
 )
 from nanoreviser_torch.models.reviser import randomize_inference_stats
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 TOL = 1e-5
 

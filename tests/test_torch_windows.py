@@ -54,6 +54,7 @@ from nanoreviser_torch.ops import reviser_kernel as rk
 from nanoreviser_torch.signal import (
     assemble_features, base_colors, base_labels, device_preprocess_batch,
     features, mad_normalizers, prep_read, prep_read_numpy, segment_signal)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 T = 11
 

@@ -50,6 +50,7 @@ from nanoreviser_torch.models import ReviserConfig, init_reviser_params
 from nanoreviser_torch.models.fused import fold_inference_params
 from nanoreviser_torch.models.reviser import randomize_inference_stats
 from nanoreviser_torch.ops import reviser_kernel as rk
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 # the kernel's constants (csrc/reviser_stack.cu)
 KG, TILE = 16, 512

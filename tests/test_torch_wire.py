@@ -27,6 +27,7 @@ from nanoreviser_torch.io import get_read_data
 from nanoreviser_torch.io.synthetic import write_synthetic_dir
 from nanoreviser_torch.models import ReviserConfig, init_reviser_params, save_keras_weights
 from nanoreviser_torch.signal import compact_read_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 BATCH, BLOCK = 2048, 128
 

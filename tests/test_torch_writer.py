@@ -46,6 +46,7 @@ from nanoreviser_torch.io.writers import (
 from nanoreviser_torch.models import ReviserConfig, init_reviser_params, save_keras_weights
 from nanoreviser_torch.models.reviser import randomize_inference_stats
 from nanoreviser_torch.native.build import NativeBuildError
+from tests.torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 NAMES = {
     "empty": [],
